@@ -5,8 +5,11 @@
 Builds the CUDA kernels from dsrt_tpu_torch/csrc/, holds each against its
 plain PyTorch version, renders the flagship frame (textured ISS stand-in,
 51k triangles, 800x450, 32 spp, max_depth 50, sun on) through
-`render_frame_fused`, and runs the frame-loop driver over two poses.  Each
-phase prints one line; any failure raises, so the exit code is nonzero.
+`render_frame_fused`, runs the frame-loop driver over two poses, holds the
+sphere kernel against its plain version on five sphere scenes, and renders
+the two full-size sphere frames (rtiow 400x225 at 64 spp, volumetric
+800x450 at 32 spp) through `render_frame_fused`.  Each phase prints one
+line; any failure raises, so the exit code is nonzero.
 The last two lines are the kernels' JSON summary and
 {"ok": true, "device": {...}}.  Needs one CUDA device; imports no JAX.
 """
@@ -28,6 +31,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(ROOT, "chiprun_out", "chip_smoke")
 SUNLIT_CAM = (-20.0, -30.0, -95.0)   # lights about half the frame
 BENCH_CAM = (40.0, 60.0, 190.0)      # the flagship viewpoint
+# full-size sphere frames (preset, width, height, spp; max_depth 50,
+# camera (0, 0.6, 2) -> (0, 0, -1), vfov 50): the JAX package's BASELINE
+# configs[1] and its volumetric bench cell
+SPHERE_FRAMES = (("rtiow_smoke_scene", 400, 225, 64),
+                 ("volumetric_scene", 800, 450, 32))
 
 
 def phase(name: str, msg: str) -> None:
@@ -68,6 +76,23 @@ def event_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, kernel: str, reps: int) -> float:
+    """Mean device time in ms per call of the kernels whose name holds
+    `kernel`, from torch.profiler over `reps` calls after a warm-up.
+    Unlike CUDA events around a wrapper call it leaves out the host's
+    share of the call (argument packing, its device-to-host reads)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", 0)
+             for e in prof.key_averages() if kernel in e.key)
+    return us / 1e3 / reps
+
+
 def random_rays(n: int, seed: int, device):
     """Rays from a shell around the station: half aimed at it, half in
     random directions (numpy, from a seed)."""
@@ -82,6 +107,115 @@ def random_rays(n: int, seed: int, device):
     o, d = o.astype(np.float32), d.astype(np.float32)
     return (V3(*(torch.from_numpy(c).to(device) for c in o)),
             V3(*(torch.from_numpy(c).to(device) for c in d)))
+
+
+def sphere_cases():
+    """(name, CPU scene, config extras, look-from, vfov) of the sphere
+    scenes the kernel is checked on: the three presets, depth of field
+    with motion blur and the sun, and an environment sky from a seed."""
+    from dsrt_tpu_torch.models import presets
+    env = np.random.default_rng(5).uniform(0.0, 2.0, (8, 16, 3))
+    return [
+        ("rtiow", presets.rtiow_smoke_scene(), {}, (0.0, 0.6, 2.0), 50),
+        ("sphere_light", presets.sphere_light_scene(), {}, (0.0, 0.6, 2.0),
+         50),
+        ("volumetric", presets.volumetric_scene(), {}, (0.0, 0.6, 2.0), 50),
+        ("dof_motion", presets.dof_motion_scene(sun=True),
+         dict(aperture=0.2, time0=0.2, time1=0.8), (0.0, 0.4, 1.2), 60),
+        ("env", presets.env_sphere_scene(env.astype(np.float32),
+                                         rotation_deg=30.0, scale=1.5),
+         {}, (0.0, 0.6, 2.0), 50)]
+
+
+def sphere_phases(dev) -> dict:
+    """Phases 7-8: the sphere kernel against its plain version on five
+    scenes, then the two full-size sphere frames through
+    render_frame_fused.  Returns the kernel's entry of the JSON line."""
+    from dsrt_tpu.config import RenderConfig
+    from dsrt_tpu_torch.models import presets
+    from dsrt_tpu_torch.ops import sphere_kernel as sk
+    from dsrt_tpu_torch.ops.camera import make_camera
+    from dsrt_tpu_torch.render import render_frame_fused, tonemap
+
+    # 7. kernel vs plain on the card (and the plain version on the CPU),
+    # 64x36, 4 spp, max_depth 12: identical accumulators and ray counts
+    for name, scene_cpu, extra, look, vfov in sphere_cases():
+        cfg = RenderConfig(width=64, height=36, spp=4, max_depth=12, **extra)
+        cam = make_camera(look, (0.0, 0.0, -1.0), vfov=vfov, width=64,
+                          height=36, aperture=extra.get("aperture", 0.0))
+        scene, cam_d = scene_cpu.to(dev), cam.to(dev)
+        acc_k, n_k = sk.sphere_render(scene, cam_d, cfg)
+        acc_p, n_p = sk.sphere_render_plain(scene, cam_d, cfg, cfg.spp)
+        acc_c, n_c = sk.sphere_render_plain(scene_cpu, cam, cfg, cfg.spp)
+        torch.cuda.synchronize()
+        same = float((acc_k == acc_p).all(dim=-1).float().mean())
+        err = float((acc_k - acc_p).abs().max())
+        img_k, img_c = tonemap(acc_k, cfg, 4), tonemap(acc_c, cfg, 4)
+        d = np.abs(img_k.astype(int) - img_c.astype(int))
+        same_c = float((d.max(-1) == 0).mean())
+        phase("7 sphere check",
+              f"{name} 64x36 spp4 depth12: kernel vs plain on the card "
+              f"{same:.4%} pixels identical, max |d| {err:.3g}, rays "
+              f"{int(n_k)} vs {int(n_p)} (tolerance: identical); u8 vs the "
+              f"CPU plain version {same_c:.4%} identical, mean |d| "
+              f"{d.mean():.4f}, rays {int(n_c)} (tolerance: >= 99%, mean <= "
+              f"0.5 u8); lit {(img_k > 0).mean():.2f}")
+        require(torch.equal(acc_k, acc_p) and int(n_k) == int(n_p),
+                f"sphere kernel disagrees with its plain version on {name}")
+        require(same_c >= 0.99 and d.mean() <= 0.5,
+                f"sphere kernel disagrees with the CPU plain version on "
+                f"{name}")
+        require((img_k > 0).mean() > 0.05, f"{name} frame is dark")
+
+    # 8. full size through the user entry point
+    entry = None
+    for name, w, h, spp in SPHERE_FRAMES:
+        cfg = RenderConfig(width=w, height=h, spp=spp, max_depth=50)
+        scene = getattr(presets, name)(device=dev)
+        cam = make_camera((0.0, 0.6, 2.0), (0.0, 0.0, -1.0), vfov=50,
+                          width=w, height=h, device=dev)
+        sk.reset_launches()
+        secs, times, (img, rays) = wall_time(
+            lambda: render_frame_fused(scene, cam, cfg, with_count=True), 3)
+        launches = sk.LAUNCHES["dsrt_sphere_render"]
+        require(launches > 0, "sphere kernel not launched")
+        require(img.shape == (h, w, 3) and (img > 0).mean() > 0.2,
+                f"{name} full-size image")
+        require(rays >= w * h * spp, "ray count below one per sample")
+        k_full = event_ms(lambda: sk.sphere_render(scene, cam, cfg), 3)
+        k_dev = device_ms(lambda: sk.sphere_render(scene, cam, cfg),
+                          "sphere_render_kernel", 3)
+        require(k_dev > 0, "the profiler saw no sphere kernel")
+        cfg1 = dataclasses.replace(cfg, spp=1)
+        k1 = event_ms(lambda: sk.sphere_render(scene, cam, cfg1), 10)
+        p1 = event_ms(lambda: sk.sphere_render_plain(scene, cam, cfg1, 1), 1)
+        acc_k1, n_k1 = sk.sphere_render(scene, cam, cfg1)
+        acc_p1, n_p1 = sk.sphere_render_plain(scene, cam, cfg1, 1)
+        err1 = float((acc_k1 - acc_p1).abs().max())
+        phase("8 sphere frame",
+              f"{name} {w}x{h} spp{spp} depth50: frame {secs:.4f} s (reps "
+              f"{', '.join(f'{t:.4f}' for t in times)}), wrapper call "
+              f"(CUDA events) {k_full:.3f} ms, kernel on the device "
+              f"(profiler) {k_dev:.3f} ms, {rays} rays exact, "
+              f"{rays / secs / 1e6:.2f} Mrays/s on the frame wall, "
+              f"{rays / k_dev / 1e3:.1f} on the kernel; spp1 wrapper calls: "
+              f"kernel {k1:.3f} ms, plain {p1:.1f} ms, max |d| {err1:.3g}, "
+              f"rays {int(n_k1)} vs {int(n_p1)}; launches {launches}")
+        require(torch.equal(acc_k1, acc_p1) and int(n_k1) == int(n_p1),
+                f"sphere kernel and plain disagree at the {name} frame")
+        entry = {
+            "name": "dsrt_sphere_render", "route": "cuda",
+            "source": "dsrt_tpu_torch/csrc/sphere_kernel.cu",
+            "replaces": "dsrt_tpu/ops/pallas_sphere.py:88",
+            "launches": launches, "max_abs_err": err1, "ms": k1,
+            "plain_ms": p1, "shape": f"{w}x{h} spp1 max_depth50",
+            "frame_ms": secs * 1e3, "frame_wrapper_ms": k_full,
+            "frame_device_ms": k_dev, "mrays_per_s": rays / secs / 1e6,
+            "launches_by_frame": dict(
+                (entry or {}).get("launches_by_frame", {}),
+                **{name: launches})}
+    entry["launches"] = sum(entry["launches_by_frame"].values())
+    return entry
 
 
 def main() -> int:
@@ -244,6 +378,8 @@ def main() -> int:
            for f in pngs]
     phase("6 driver", f"rc {rc}, frames {pngs}, lit shares {lit}")
     require(rc == 0 and len(pngs) == 2 and min(lit) > 0, "driver frames")
+
+    kernels["dsrt_sphere_render"] = sphere_phases(dev)
 
     require("jax" not in sys.modules, "jax was imported")
     print(json.dumps({"kernels": list(kernels.values())}))

@@ -63,18 +63,8 @@ struct PathArgs {
   bool sun_on, textured;
 };
 
-// nearest-neighbour texel: floor-frac wrap, V-flip, white when invalid
 __device__ __forceinline__ f3 sample_image(const PathArgs& a, int tex, float u, float v) {
-  bool valid = tex >= 0 && tex < a.n_textures;
-  int tid = min(max(tex, 0), max(a.n_textures - 1, 0));
-  int w = __ldg(a.tex_w + tid), h = __ldg(a.tex_h + tid), off = __ldg(a.tex_off + tid);
-  float uu = u - floorf(u);
-  float vv = v - floorf(v);
-  int i = (int)(uu * (float)(w - 1));
-  int j = (int)((1.0f - vv) * (float)(h - 1));
-  int idx = off + (j * w + i) * 3;
-  if (!(valid && idx >= 0 && idx + 2 < a.pool_n)) return mk(1.0f, 1.0f, 1.0f);
-  return mk(__ldg(a.pool + idx), __ldg(a.pool + idx + 1), __ldg(a.pool + idx + 2));
+  return sample_texel(a.pool, a.tex_w, a.tex_h, a.tex_off, a.n_textures, a.pool_n, tex, u, v);
 }
 
 // One sample to completion (ops/shade.py trace_paths for one lane);
@@ -155,15 +145,8 @@ __device__ f3 trace_path(const PathArgs& a, f3 ro, f3 rd, uint32_t& st, unsigned
       }
     }
     // 6-7. cosine-hemisphere continuation; throughput *= albedo
-    f3 local = random_cosine_direction(st);
-    f3 wv = normalize(n);
-    bool big = fabsf(wv.x) > 0.9f;
-    f3 av = mk(big ? 0.0f : 1.0f, big ? 1.0f : 0.0f, 0.0f);
-    f3 vv = normalize(cross(wv, av));
-    f3 uv = cross(vv, wv);
-    f3 world = normalize(add(add(scale(uv, local.x), scale(vv, local.y)), scale(wv, local.z)));
-    float cos_o = nmax(dot(world, n), 0.0f);
-    float pdf = cos_o > 0.0f ? cos_o / PI_F : 0.0f;
+    float pdf;
+    f3 world = sample_cosine_hemisphere(n, st, pdf);
     if (!(pdf > 0.0f)) break;
     thr = mul(thr, albedo);
     ro = p;

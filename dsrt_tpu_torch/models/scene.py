@@ -13,11 +13,15 @@ packing), emitting only the main-path tables:
   float arithmetic on those lanes);
 - `tri_shade` f32[T,16]: normal, uv0, uv1, uv2, material, texture;
 - `mat_pack` f32[M,16]: type, albedo, emissive, fuzz, ref_idx, ...;
-- the texture pool (bf16-representable f32 values) and its headers.
+- the texture pool (bf16-representable f32 values) and its headers;
+- spheres (`sph_center`, `sph_center2` for moving centres, `sph_radius`,
+  `sph_mat`), the emissive-sphere light list `light_idx`, constant media
+  (`med_*`) and the environment-map sky (`env_tex`, a texture-pool
+  entry, with `env_rotation` in radians and `env_scale`).
 
 The build-time quantizations that change pixels are kept: bf16 UVs on
-flat-textured scenes and the bf16-rounded texture pool.  Spheres, quads,
-media and the environment sky are not ported yet.
+flat-textured scenes and the bf16-rounded texture pool.  Quads and
+smooth (vn) shading are not ported yet.
 """
 
 from __future__ import annotations
@@ -29,7 +33,8 @@ import numpy as np
 import torch
 
 from dsrt_tpu.models.bvh_build import BVH, build_bvh, collapse_wide
-from dsrt_tpu.models.materials import DEFAULT_MATERIAL, Material
+from dsrt_tpu.models.materials import (DEFAULT_MATERIAL, DIFFUSE_LIGHT,
+                                       Material)
 from dsrt_tpu.models.textures import TextureRegistry
 
 # (field name, dtype) of every table the port keeps, in the reference
@@ -38,10 +43,22 @@ TABLES = (("bvh_pack", np.float32), ("thr_pack", np.float32),
           ("tri_pack", np.float32), ("tri_shade", np.float32),
           ("mat_pack", np.float32), ("tex_pool", np.float32),
           ("tex_w", np.int32), ("tex_h", np.int32), ("tex_off", np.int32),
-          ("sun_dir", np.float32), ("sun_radiance", np.float32))
-META = ("n_tris", "n_nodes", "max_leaf", "n_textures", "n_spheres",
-        "n_quads", "n_lights", "n_media", "sun_enabled", "has_image_tex",
-        "has_ptex", "has_smooth", "env_tex", "seed")
+          ("sun_dir", np.float32), ("sun_radiance", np.float32),
+          ("sph_center", np.float32), ("sph_center2", np.float32),
+          ("sph_radius", np.float32), ("sph_mat", np.int32),
+          ("light_idx", np.int32),
+          ("med_kind", np.int32), ("med_center", np.float32),
+          ("med_radius", np.float32), ("med_min", np.float32),
+          ("med_max", np.float32), ("med_neg_inv_density", np.float32),
+          ("med_albedo", np.float32))
+INT_META = ("n_tris", "n_nodes", "max_leaf", "n_textures", "n_spheres",
+            "n_quads", "n_lights", "n_media", "env_tex", "seed")
+BOOL_META = ("sun_enabled", "has_image_tex", "has_ptex", "has_smooth",
+             "has_moving")
+FLOAT_META = ("env_rotation", "env_scale")
+META = INT_META + BOOL_META + FLOAT_META
+MED_SPHERE = 0
+MED_BOX = 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,6 +74,18 @@ class Scene:
     tex_off: torch.Tensor
     sun_dir: torch.Tensor        # f32[3], ISS->Sun (the renderer negates)
     sun_radiance: torch.Tensor   # f32[3]
+    sph_center: torch.Tensor     # f32[S,3] (one far dummy row when S = 0)
+    sph_center2: torch.Tensor    # f32[S,3] centre at shutter time 1
+    sph_radius: torch.Tensor     # f32[S]
+    sph_mat: torch.Tensor        # i32[S]
+    light_idx: torch.Tensor      # i32[n_lights] sphere rows (dummy [0])
+    med_kind: torch.Tensor       # i32[M]: MED_SPHERE or MED_BOX
+    med_center: torch.Tensor     # f32[M,3]
+    med_radius: torch.Tensor     # f32[M]
+    med_min: torch.Tensor        # f32[M,3]
+    med_max: torch.Tensor        # f32[M,3]
+    med_neg_inv_density: torch.Tensor  # f32[M] = -1 / density
+    med_albedo: torch.Tensor     # f32[M,3]
     n_tris: int
     n_nodes: int                 # binary BVH nodes = the walk's end marker
     max_leaf: int
@@ -69,12 +98,19 @@ class Scene:
     has_image_tex: bool
     has_ptex: bool
     has_smooth: bool
-    env_tex: int
+    has_moving: bool
+    env_tex: int                 # texture id of the sky (-1: black)
+    env_rotation: float          # radians
+    env_scale: float
     seed: int
 
     @property
     def device(self) -> torch.device:
         return self.tri_pack.device
+
+    @property
+    def has_env(self) -> bool:
+        return self.env_tex >= 0
 
     def to(self, device) -> "Scene":
         return dataclasses.replace(self, **{
@@ -93,13 +129,9 @@ def scene_from_reference(ref, device="cpu") -> Scene:
     tables = {name: torch.as_tensor(np.array(np.asarray(getattr(ref, name)),
                                              dtype), device=device)
               for name, dtype in TABLES}
-    meta = {name: getattr(ref, name) for name in META}
-    for name in ("n_tris", "n_nodes", "max_leaf", "n_textures",
-                 "n_spheres", "n_quads", "n_lights", "n_media", "env_tex",
-                 "seed"):
-        meta[name] = int(meta[name])
-    for name in ("sun_enabled", "has_image_tex", "has_ptex", "has_smooth"):
-        meta[name] = bool(meta[name])
+    meta = {name: int(getattr(ref, name)) for name in INT_META}
+    meta.update({name: bool(getattr(ref, name)) for name in BOOL_META})
+    meta.update({name: float(getattr(ref, name)) for name in FLOAT_META})
     return Scene(**tables, **meta)
 
 
@@ -201,14 +233,18 @@ def _queued(what: str, item: str):
 
 
 class SceneBuilder:
-    """Host scene compiler: triangles, materials (deduplicated by object
-    identity), image textures, directional sun."""
+    """Host scene compiler: triangles, spheres, constant media, materials
+    (deduplicated by object identity), image textures, the environment
+    sky, directional sun."""
 
     def __init__(self, sun_enabled: bool = True,
                  sun_dir: Tuple[float, float, float] = (0.0, 1.0, 0.0),
                  sun_radiance: Tuple[float, float, float] = (1e5, 9.5e4, 9e4),
                  seed: int = 1337, bvh_method: str = "median"):
         self._meshes: List[_MeshEntry] = []
+        self._spheres: List[tuple] = []
+        self._media: List[tuple] = []
+        self._env: Optional[tuple] = None   # (path or array, rot, scale)
         self.sun_enabled = sun_enabled
         self.sun_dir = np.asarray(sun_dir, np.float64)
         self.sun_radiance = np.asarray(sun_radiance, np.float32)
@@ -230,23 +266,41 @@ class SceneBuilder:
             list(mesh.materials), list(mesh.tex_paths),
             smooth=getattr(mesh, "n0", None) is not None))
 
-    def add_sphere(self, *a, **kw) -> None:
-        raise _queued("add_sphere", "queue 2 item 7")
+    def add_sphere(self, center, radius: float, material: Material,
+                   center2=None) -> None:
+        """Static sphere, or moving when `center2` is given: the centre
+        travels c(t) = center + t (center2 - center) over the shutter
+        time t (rendered when cfg.time1 > cfg.time0)."""
+        c = np.asarray(center, np.float32)
+        c2 = c if center2 is None else np.asarray(center2, np.float32)
+        self._spheres.append((c, float(radius), material, c2))
 
     def add_quad(self, *a, **kw) -> None:
-        raise _queued("add_quad", "queue 2 item 7")
+        raise _queued("add_quad", "queue 1 item 1")
 
     def add_box(self, *a, **kw) -> None:
-        raise _queued("add_box", "queue 2 item 7")
+        raise _queued("add_box", "queue 1 item 1")
 
-    def add_constant_medium_sphere(self, *a, **kw) -> None:
-        raise _queued("constant media", "queue 2 item 7")
+    def add_constant_medium_sphere(self, center, radius: float,
+                                   density: float, albedo) -> None:
+        self._media.append((MED_SPHERE, np.asarray(center, np.float32),
+                            float(radius), np.zeros(3, np.float32),
+                            np.zeros(3, np.float32), float(density),
+                            np.asarray(albedo, np.float32)))
 
-    def add_constant_medium_box(self, *a, **kw) -> None:
-        raise _queued("constant media", "queue 2 item 7")
+    def add_constant_medium_box(self, box_min, box_max, density: float,
+                                albedo) -> None:
+        self._media.append((MED_BOX, np.zeros(3, np.float32), 0.0,
+                            np.asarray(box_min, np.float32),
+                            np.asarray(box_max, np.float32), float(density),
+                            np.asarray(albedo, np.float32)))
 
-    def set_environment(self, *a, **kw) -> None:
-        raise _queued("the environment-map sky", "queue 2 item 5")
+    def set_environment(self, image, rotation_deg: float = 0.0,
+                        scale: float = 1.0) -> None:
+        """Equirectangular sky: `image` is a file path (.hdr stays linear,
+        LDR files go through sRGB -> linear) or an (H, W, 3) float linear
+        array.  Rays that miss pick up scale * env(dir)."""
+        self._env = (image, float(np.radians(rotation_deg)), float(scale))
 
     def set_sun(self, direction, radiance=None, enabled: bool = True) -> None:
         self.sun_dir = np.asarray(direction, np.float64)
@@ -355,6 +409,37 @@ class SceneBuilder:
         tri_shade[:, 9] = tri_mat[:m].astype(np.float32)
         tri_shade[:, 10] = tri_tex[:m].astype(np.float32)
 
+        # spheres after the triangles, in insertion order (material rows
+        # are numbered in that order too)
+        n_spheres = len(self._spheres)
+        if n_spheres:
+            sph_center = np.asarray([e[0] for e in self._spheres],
+                                    np.float32)
+            sph_radius = np.asarray([e[1] for e in self._spheres],
+                                    np.float32)
+            sph_mat = np.asarray([upsert(e[2]) for e in self._spheres],
+                                 np.int32)
+            sph_center2 = np.asarray([e[3] for e in self._spheres],
+                                     np.float32)
+        else:
+            sph_center = sph_center2 = np.full((1, 3), 1e30, np.float32)
+            sph_radius = np.zeros(1, np.float32)
+            sph_mat = np.zeros(1, np.int32)
+
+        n_media = len(self._media)
+        media = self._media or [(0, np.zeros(3, np.float32), 0.0,
+                                 np.zeros(3, np.float32),
+                                 np.zeros(3, np.float32), None,
+                                 np.zeros(3, np.float32))]
+        med_kind = np.asarray([e[0] for e in media], np.int32)
+        med_center = np.asarray([e[1] for e in media], np.float32)
+        med_radius = np.asarray([e[2] for e in media], np.float32)
+        med_min = np.asarray([e[3] for e in media], np.float32)
+        med_max = np.asarray([e[4] for e in media], np.float32)
+        med_nid = np.asarray([0.0 if e[5] is None else -1.0 / e[5]
+                              for e in media], np.float32)
+        med_albedo = np.asarray([e[6] for e in media], np.float32)
+
         if not mats:
             mats.append(DEFAULT_MATERIAL)
             mat_tex.append(-1)
@@ -376,7 +461,20 @@ class SceneBuilder:
                                         np.float32)
         mat_pack[:, 14] = np.asarray(mat_tex, np.float32)
 
+        # emissive spheres are the area lights
+        lights = [i for i in range(n_spheres)
+                  if mats[sph_mat[i]].kind == DIFFUSE_LIGHT
+                  and max(mats[sph_mat[i]].emissive) > 0]
+        light_idx = np.asarray(lights or [0], np.int32)
+
+        # the sky is registered after the triangle textures, so
+        # has_image_tex counts triangle textures only
         n_tex_tri = texreg.num_textures
+        env_tex, env_rot, env_scale = -1, 0.0, 1.0
+        if self._env is not None:
+            img, env_rot, env_scale = self._env
+            env_tex = (texreg.get_or_load(img) if isinstance(img, str)
+                       else texreg.add_array(np.asarray(img, np.float32)))
         pool, tex_w, tex_h, tex_off, n_tex = texreg.build_pool()
         pool = _bf16_round(pool)
 
@@ -393,10 +491,23 @@ class SceneBuilder:
             tex_w=t(tex_w, np.int32), tex_h=t(tex_h, np.int32),
             tex_off=t(tex_off, np.int32), sun_dir=t(sun_dir, np.float32),
             sun_radiance=t(self.sun_radiance, np.float32),
+            sph_center=t(sph_center, np.float32),
+            sph_center2=t(sph_center2, np.float32),
+            sph_radius=t(sph_radius, np.float32),
+            sph_mat=t(sph_mat, np.int32), light_idx=t(light_idx, np.int32),
+            med_kind=t(med_kind, np.int32),
+            med_center=t(med_center, np.float32),
+            med_radius=t(med_radius, np.float32),
+            med_min=t(med_min, np.float32), med_max=t(med_max, np.float32),
+            med_neg_inv_density=t(med_nid, np.float32),
+            med_albedo=t(med_albedo, np.float32),
             n_tris=n_tris, n_nodes=bvh.num_nodes,
             max_leaf=max(bvh.max_leaf_size, 1), n_textures=n_tex,
-            n_spheres=0, n_quads=0, n_lights=0, n_media=0,
-            sun_enabled=bool(self.sun_enabled),
+            n_spheres=n_spheres, n_quads=0, n_lights=len(lights),
+            n_media=n_media, sun_enabled=bool(self.sun_enabled),
             has_image_tex=bool(n_tex_tri > 0),
             has_ptex=bool((mat_ptk != 0).any()),
-            has_smooth=bool(has_smooth), env_tex=-1, seed=int(self.seed))
+            has_smooth=bool(has_smooth),
+            has_moving=bool((sph_center2 != sph_center).any()),
+            env_tex=int(env_tex), env_rotation=float(env_rot),
+            env_scale=float(env_scale), seed=int(self.seed))

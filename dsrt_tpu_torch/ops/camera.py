@@ -1,9 +1,11 @@
-"""Pinhole camera (port of dsrt_tpu/ops/camera.py).
+"""Pinhole and thin-lens camera (port of dsrt_tpu/ops/camera.py).
 
 `make_camera` is the reference's host-side float32 camera setup
 verbatim; `generate_rays` is the jittered raygen u = (px+jx)/(W-1),
 v = (py+jy)/(H-1), dir = lower_left + u*horizontal + v*vertical - origin.
-The thin-lens path (aperture > 0) is not ported yet.
+With an aperture, `generate_rays_dof` offsets origin and direction by
+lens_radius times a unit-disk sample (2 draws per rejection attempt,
+drawn after the jitter pair) on the camera's (u, v) basis.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from dsrt_tpu_torch.ops import rng as rngmod
 from dsrt_tpu_torch.ops.linalg import V3
 
 
@@ -37,22 +40,18 @@ class Camera:
             for f in dataclasses.fields(self)
             if isinstance(getattr(self, f.name), torch.Tensor)})
 
-    def vector(self) -> np.ndarray:
-        """[origin, lower_left, horizontal, vertical] as f32[12] (the
-        kernel's camera argument)."""
-        return np.concatenate([self.origin.cpu().numpy(),
-                               self.lower_left.cpu().numpy(),
-                               self.horizontal.cpu().numpy(),
-                               self.vertical.cpu().numpy()]).astype(
-                                   np.float32)
+    def vector(self) -> torch.Tensor:
+        """[origin, lower_left, horizontal, vertical, u, v, lens_radius]
+        as f32[19] on the camera's device (the kernels' camera
+        argument)."""
+        return torch.cat([self.origin, self.lower_left, self.horizontal,
+                          self.vertical, self.u, self.v,
+                          self.lens_radius.reshape(1)]).to(torch.float32)
 
 
 def make_camera(lookfrom, lookat, vup=(0.0, 1.0, 0.0), vfov: float = 40.0,
                 width: int = 800, height: int = 450, aperture: float = 0.0,
                 focus_dist: float | None = None, device="cpu") -> Camera:
-    if aperture > 0:
-        raise NotImplementedError(
-            "thin-lens camera (aperture > 0): ROADMAP queue 2 item 7")
     lookfrom = np.asarray(lookfrom, np.float32)
     lookat = np.asarray(lookat, np.float32)
     vup = np.asarray(vup, np.float32)
@@ -101,9 +100,6 @@ def camera_from_reference(ref, device="cpu") -> Camera:
     def t(name):
         return torch.as_tensor(np.array(getattr(ref, name), np.float32),
                                device=device)
-    if float(np.asarray(ref.lens_radius)) > 0:
-        raise NotImplementedError(
-            "thin-lens camera (aperture > 0): ROADMAP queue 2 item 7")
     return Camera(origin=t("origin"), lower_left=t("lower_left"),
                   horizontal=t("horizontal"), vertical=t("vertical"),
                   u=t("u"), v=t("v"), w=t("w"),
@@ -130,3 +126,49 @@ def generate_rays(cam: Camera, px, py, jx, jy) -> Tuple[V3, V3]:
     origin = V3(o[0].expand(u.shape), o[1].expand(u.shape),
                 o[2].expand(u.shape))
     return origin, V3(dx, dy, dz)
+
+
+def random_in_unit_disk(state, mask=None, max_tries: int = 64):
+    """Rejection-sample the unit disk: one attempt of 2 draws, then up to
+    `max_tries` retries on the lanes still outside."""
+    if mask is None:
+        mask = torch.ones(state.shape, dtype=torch.bool, device=state.device)
+
+    def attempt(state, need):
+        x, state = rngmod.draw(state, need)
+        y, state = rngmod.draw(state, need)
+        return x * 2.0 - 1.0, y * 2.0 - 1.0, state
+
+    x, y, state = attempt(state, mask)
+    need = mask & (x * x + y * y >= 1.0)
+    for _ in range(max_tries):
+        if not bool(need.any()):
+            break
+        cx, cy, state = attempt(state, need)
+        x = torch.where(need, cx, x)
+        y = torch.where(need, cy, y)
+        need = need & ~(cx * cx + cy * cy < 1.0)
+    return x, y, state
+
+
+def generate_rays_dof(cam: Camera, px, py, jx, jy, state, mask):
+    """Thin-lens jittered raygen; returns (origin, direction, state)."""
+    origin0, rd0 = generate_rays(cam, px, py, jx, jy)
+    dx, dy, state = random_in_unit_disk(state, mask)
+    lr = cam.lens_radius.to(jx.device)
+    cu, cv = cam.u.to(jx.device), cam.v.to(jx.device)
+    rdx = lr * dx
+    rdy = lr * dy
+    off = V3(cu[0] * rdx + cv[0] * rdy, cu[1] * rdx + cv[1] * rdy,
+             cu[2] * rdx + cv[2] * rdy)
+    return origin0 + off, rd0 - off, state
+
+
+def camera_rays(cam: Camera, px, py, jx, jy, state, mask,
+                aperture_on: bool):
+    """Pinhole or thin-lens raygen; the state advances only on the
+    thin-lens path."""
+    if aperture_on:
+        return generate_rays_dof(cam, px, py, jx, jy, state, mask)
+    ro, rd = generate_rays(cam, px, py, jx, jy)
+    return ro, rd, state

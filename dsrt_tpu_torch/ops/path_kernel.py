@@ -2,11 +2,11 @@
 PyTorch versions, and launch counters.
 
 Port of dsrt_tpu/ops/pallas_path.py for the triangle scope
-(`fused_supported`, :101-133) and the frame entry `trace_fused`
-(:3684-3938).  Each wrapper takes its plain version only for tensors on
-the CPU; for CUDA tensors it launches its kernel or raises.  LAUNCHES
-counts kernel launches, so a caller can show a run went through the
-kernels.
+(`fused_supported`, :101-133, as `scope_error`) and the frame entry
+`trace_fused` (:3684-3938).  Each wrapper takes its plain version only
+for tensors on the CPU; for CUDA tensors it launches its kernel or
+raises.  LAUNCHES counts kernel launches, so a caller can show a run went
+through the kernels.
 """
 
 from __future__ import annotations
@@ -14,10 +14,9 @@ from __future__ import annotations
 import torch
 
 from dsrt_tpu_torch.ops import build
-from dsrt_tpu_torch.ops import rng as rngmod
-from dsrt_tpu_torch.ops.camera import generate_rays
 from dsrt_tpu_torch.ops.linalg import V3
-from dsrt_tpu_torch.ops.shade import check_scope, sun_direction, trace_paths
+from dsrt_tpu_torch.ops.shade import (check_scope, render_samples,
+                                      sun_direction)
 from dsrt_tpu_torch.ops.trace import lane_traverse
 
 LAUNCHES = {"dsrt_path_render": 0, "dsrt_closest_hit": 0}
@@ -28,16 +27,26 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def fused_supported(scene, cfg) -> bool:
-    """Whether the path kernel covers this scene and config: triangle
-    scenes with flat normals, image textures and the sun on or off;
-    no spheres, quads, area lights, media, env sky, procedural textures,
-    depth of field or motion blur."""
+def scope_error(scene, cfg) -> str | None:
+    """Why the path kernel does not cover this scene and config, or None.
+    It covers triangle scenes with flat normals, image textures and the
+    sun on or off; no spheres, quads, area lights, media, env sky,
+    procedural textures, depth of field or motion blur."""
     try:
         check_scope(scene, cfg)
-    except NotImplementedError:
-        return False
-    return scene.n_tris > 0
+    except NotImplementedError as e:
+        return str(e)
+    if scene.n_tris == 0:
+        return "the path kernel needs a triangle scene"
+    if (scene.n_spheres or scene.n_lights or scene.n_media
+            or scene.env_tex >= 0 or scene.has_ptex):
+        return ("spheres, area lights, media, the environment sky and "
+                "procedural textures in a triangle scene are not ported "
+                "yet (ROADMAP queue 1 item 1)")
+    if cfg.aperture > 0 or cfg.time1 > cfg.time0:
+        return ("depth of field and motion blur in a triangle scene are "
+                "not ported yet (ROADMAP queue 1 item 1)")
+    return None
 
 
 def _i32(x: int) -> int:
@@ -121,40 +130,11 @@ def closest_hit(scene, ro: V3, rd: V3, t_min: float = 1e-3,
             tri_out.to(torch.int64).reshape(shape))
 
 
-def pixel_grid(width: int, height: int, device):
-    """Row-major (y, x) pixel coordinates of a width x height frame."""
-    py, px = torch.meshgrid(torch.arange(height, device=device),
-                            torch.arange(width, device=device),
-                            indexing="ij")
-    return px.reshape(-1), py.reshape(-1)
-
-
 def path_render_plain(scene, cam, cfg, spp: int, salt: int = 0):
     """Plain version of the path kernel: for each pixel, the sum over
     `spp` samples of clamp01(L), as (height, width, 3) float32 with row
-    0 = the camera's bottom row, and the exact ray count (int64 tensor).
-    The sample loop of dsrt_tpu/render.py `_render_lanes`."""
-    dev = scene.device
-    cam = cam.to(dev)
-    px, py = pixel_grid(cfg.width, cfg.height, dev)
-    state = rngmod.seed_pixels(px, py, cam.width, scene.seed, salt)
-    valid = torch.ones(px.shape, dtype=torch.bool, device=dev)
-    zero = torch.zeros(px.shape, dtype=torch.float32, device=dev)
-    acc = V3(zero, zero, zero)
-    nrays = torch.zeros((), dtype=torch.int64, device=dev)
-    spp_t = torch.tensor(spp, dtype=torch.float32, device=dev)
-    for s in range(spp):
-        jxu, state = rngmod.draw(state, valid)
-        jyu, state = rngmod.draw(state, valid)
-        sf = torch.tensor(s, dtype=torch.float32, device=dev)
-        jx = (sf + jxu) / spp_t
-        jy = (sf + jyu) / spp_t
-        ro, rd = generate_rays(cam, px, py, jx, jy)
-        L, state, nr = trace_paths(scene, cfg, ro, rd, state, valid)
-        acc = acc + L
-        nrays = nrays + nr
-    img = torch.stack(list(acc), dim=-1).reshape(cfg.height, cfg.width, 3)
-    return img, nrays
+    0 = the camera's bottom row, and the exact ray count (int64 tensor)."""
+    return render_samples(scene, cam, cfg, spp, salt)
 
 
 def path_render(scene, cam, cfg, spp: int | None = None, salt: int = 0):
@@ -166,9 +146,9 @@ def path_render(scene, cam, cfg, spp: int | None = None, salt: int = 0):
     if scene.device.type == "cpu":
         return path_render_plain(scene, cam, cfg, spp, salt)
     _require_cuda(scene.device)
-    check_scope(scene, cfg)
-    if scene.n_tris == 0:
-        raise NotImplementedError("the path kernel needs a triangle scene")
+    why = scope_error(scene, cfg)
+    if why is not None:
+        raise NotImplementedError(why)
     lib = build.load()
     bvh, thr, tri = _tables(scene)
     dev = scene.device
@@ -180,7 +160,7 @@ def path_render(scene, cam, cfg, spp: int | None = None, salt: int = 0):
             raise ValueError(f"{name}: fewer entries than textures")
     pool = scene.tex_pool
     _ptr(pool, torch.float32, "tex_pool")
-    cam_vec = torch.as_tensor(cam.vector(), device=dev)
+    cam_vec = cam.vector().to(dev).contiguous()
     sd = sun_direction(scene)
     sun_vec = torch.tensor(
         [float(c) for c in sd] + [float(c) for c in scene.sun_radiance]

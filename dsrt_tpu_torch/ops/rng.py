@@ -15,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from dsrt_tpu_torch.ops.linalg import V3, f64_op, sqrt
+from dsrt_tpu_torch.ops.linalg import V3, f64_op, normalize, sqrt
 
 LCG_A = 1664525
 LCG_C = 1013904223
@@ -87,3 +87,9 @@ def random_in_unit_sphere(state, mask=None, max_tries: int = 64):
         p = V3(*(torch.where(need, c, q) for c, q in zip(cand, p)))
         need = need & outside(cand)
     return p, state
+
+
+def random_unit_vector(state, mask=None):
+    """normalize(random_in_unit_sphere): the medium's scatter direction."""
+    p, state = random_in_unit_sphere(state, mask)
+    return normalize(p), state

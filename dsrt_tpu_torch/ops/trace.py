@@ -1,13 +1,23 @@
-"""Plain scene intersection: the per-ray stackless BVH walk and hit assembly.
+"""Plain scene intersection: the per-ray stackless BVH walk, the sphere
+and constant-medium passes, and hit assembly.
 
-Port of dsrt_tpu/ops/trace.py:465-590 (`lane_traverse`) and :652-683
-(`hit_from_kernel`).  Every ray walks the octant thread table on its
-own: octant o = (dx<0) + 2(dy<0) + 4(dz<0); an entered interior node
-continues at thr[node, 2o] (the near child), anything else at
-thr[node, 2o+1] (the next node after the subtree).  Leaves are scanned in
+Port of dsrt_tpu/ops/trace.py:465-590 (`lane_traverse`), :652-683
+(`hit_from_kernel`), :258-319 (`sphere_pass`), :383-462
+(`_boundary_interval`, `media_pass`) and :639-649 (`scene_hit`).  Every
+ray walks the octant thread table on its own: octant o = (dx<0) +
+2(dy<0) + 4(dz<0); an entered interior node continues at thr[node, 2o]
+(the near child), anything else at thr[node, 2o+1] (the next node after
+the subtree).  Leaves are scanned in
 row order with `<=` acceptance against the running closest t, so ties go
 to the later row — the walk order, and hence the accepted triangle, is
 the reference's.  The CUDA kernels (csrc/walk.cuh) walk the same way.
+
+Spheres are tested one after another after the walk, accepting
+t <= closest, so a later sphere wins a tie; with a per-lane shutter time
+a moving centre is c0 + t (c2 - c0).  Each medium then draws once on
+every active lane of every query (shadow queries included) and scatters
+where the free path -log(u) / density ends inside its boundary interval
+and before the nearest surface.
 
 This is the plain version: rays are vectorised, and each step works on
 the rays still walking (compacted), so it runs on CPU or CUDA tensors.
@@ -19,7 +29,8 @@ from typing import NamedTuple
 
 import torch
 
-from dsrt_tpu_torch.ops.linalg import V3
+from dsrt_tpu_torch.ops import rng as rngmod
+from dsrt_tpu_torch.ops.linalg import V3, dot, f64_op, sqrt
 
 
 class Hit(NamedTuple):
@@ -36,6 +47,7 @@ class Hit(NamedTuple):
     v: torch.Tensor
     tu: torch.Tensor       # interpolated texture coordinates
     tv: torch.Tensor
+    medium: torch.Tensor   # int64 medium index (-1: a surface hit)
 
     @property
     def normal(self) -> V3:
@@ -192,4 +204,145 @@ def hit_from_kernel(scene, ro: V3, rd: V3, t, u, v, tri, t_max) -> Hit:
         u=torch.where(hitmask, u, zero),
         v=torch.where(hitmask, v, zero),
         tu=torch.where(hitmask, tu, zero),
-        tv=torch.where(hitmask, tv, zero))
+        tv=torch.where(hitmask, tv, zero),
+        medium=torch.full(t.shape, -1, dtype=torch.int64, device=t.device))
+
+
+def empty_hit(shape, t_max: float, device) -> Hit:
+    """All-miss record (t = t_max) for scenes without triangles."""
+    f0 = torch.zeros(shape, dtype=torch.float32, device=device)
+    none = torch.full(shape, -1, dtype=torch.int64, device=device)
+    return Hit(hit=torch.zeros(shape, dtype=torch.bool, device=device),
+               t=torch.full(shape, float(t_max), dtype=torch.float32,
+                            device=device),
+               nx=f0, ny=f0, nz=f0,
+               front=torch.zeros(shape, dtype=torch.bool, device=device),
+               mat=torch.zeros(shape, dtype=torch.int64, device=device),
+               tex=none, tri=none, u=f0, v=f0, tu=f0, tv=f0, medium=none)
+
+
+def _update(hit: Hit, ok: torch.Tensor, **fields) -> Hit:
+    """Lanes in `ok` take the given fields; hit |= ok."""
+    new = {k: torch.where(ok, v, getattr(hit, k)) for k, v in fields.items()}
+    return hit._replace(hit=hit.hit | ok, **new)
+
+
+def sphere_pass(scene, ro: V3, rd: V3, t_min: float, hit: Hit, active,
+                time=None) -> Hit:
+    """Sequential sphere loop after the walk (later spheres win ties)."""
+    if scene.n_spheres == 0:
+        return hit
+    dev = ro.x.device
+    tmin = torch.tensor(t_min, dtype=torch.float32, device=dev)
+    with_time = time is not None and scene.has_moving
+    closest = hit.t
+    a = dot(rd, rd)
+    zero = torch.zeros_like(a)
+    for i in range(scene.n_spheres):
+        c = scene.sph_center[i]
+        cx, cy, cz = c[0], c[1], c[2]
+        if with_time:
+            c2 = scene.sph_center2[i]
+            cx = cx + time * (c2[0] - cx)
+            cy = cy + time * (c2[1] - cy)
+            cz = cz + time * (c2[2] - cz)
+        r = scene.sph_radius[i]
+        oc = V3(ro.x - cx, ro.y - cy, ro.z - cz)
+        half_b = dot(oc, rd)
+        cq = dot(oc, oc) - r * r
+        disc = half_b * half_b - a * cq
+        has = disc >= 0.0
+        sq = sqrt(torch.clamp_min(disc, 0.0))
+        root1 = (-half_b - sq) / a
+        root2 = (-half_b + sq) / a
+        r1ok = (root1 >= tmin) & (root1 <= closest)
+        root = torch.where(r1ok, root1, root2)
+        ok = has & (root >= tmin) & (root <= closest) & active
+        inv_r = 1.0 / torch.where(r != 0, r, torch.ones_like(r))
+        nx = (ro.x + root * rd.x - cx) * inv_r
+        ny = (ro.y + root * rd.y - cy) * inv_r
+        nz = (ro.z + root * rd.z - cz) * inv_r
+        front = (rd.x * nx + rd.y * ny + rd.z * nz) < 0.0
+        sgn = torch.where(front, 1.0, -1.0).to(torch.float32)
+        hit = _update(hit, ok, t=root, nx=sgn * nx, ny=sgn * ny,
+                      nz=sgn * nz, front=front,
+                      mat=scene.sph_mat[i].to(torch.int64).expand(ok.shape),
+                      tex=torch.full_like(hit.tex, -1),
+                      tri=torch.full_like(hit.tri, -1), u=zero, v=zero,
+                      tu=zero, tv=zero, medium=torch.full_like(hit.medium,
+                                                               -1))
+        closest = torch.where(ok, root, closest)
+    return hit
+
+
+def boundary_interval(scene, m: int, ro: V3, rd: V3):
+    """(has, t0, t1) of medium m's boundary along the rays, both roots
+    of a sphere or the slab interval of a box, in an unbounded range."""
+    c = scene.med_center[m]
+    r = scene.med_radius[m]
+    oc = V3(ro.x - c[0], ro.y - c[1], ro.z - c[2])
+    a = dot(rd, rd)
+    half_b = dot(oc, rd)
+    cq = dot(oc, oc) - r * r
+    disc = half_b * half_b - a * cq
+    sq = sqrt(torch.clamp_min(disc, 0.0))
+    s_has = disc > 0.0
+    s_t0 = (-half_b - sq) / a
+    s_t1 = (-half_b + sq) / a
+    bmin, bmax = scene.med_min[m], scene.med_max[m]
+    t0 = torch.full_like(ro.x, -3e38)
+    t1 = torch.full_like(ro.x, 3e38)
+    for axis, (o, d) in enumerate(zip(ro, rd)):
+        inv = 1.0 / d
+        ta = (bmin[axis] - o) * inv
+        tb = (bmax[axis] - o) * inv
+        t0 = torch.maximum(t0, torch.minimum(ta, tb))
+        t1 = torch.minimum(t1, torch.maximum(ta, tb))
+    b_has = t1 > t0
+    is_sph = scene.med_kind[m] == 0
+    return (torch.where(is_sph, s_has, b_has), torch.where(is_sph, s_t0, t0),
+            torch.where(is_sph, s_t1, t1))
+
+
+def media_pass(scene, ro: V3, rd: V3, t_min: float, hit: Hit, active,
+               state):
+    """Constant-medium scattering: one draw per medium on every active
+    lane; the log is taken in float64 and rounded once."""
+    if scene.n_media == 0:
+        return hit, state
+    rlen = sqrt(dot(rd, rd))
+    rlen_safe = torch.clamp_min(rlen, 1e-30)
+    for i in range(scene.n_media):
+        has, t0, t1 = boundary_interval(scene, i, ro, rd)
+        e0 = torch.clamp_min(t0, float(t_min))
+        e1 = torch.minimum(t1, hit.t)
+        inside = has & (e0 < e1) & active
+        u, state = rngmod.draw(state, active)
+        dist_inside = (e1 - e0) * rlen
+        hit_dist = scene.med_neg_inv_density[i] * f64_op(
+            torch.log, torch.clamp_min(u, 1e-30))
+        ok = inside & (hit_dist <= dist_inside)
+        one = torch.ones_like(e0)
+        zero = torch.zeros_like(e0)
+        hit = _update(hit, ok, t=e0 + hit_dist / rlen_safe, nx=one, ny=zero,
+                      nz=zero, front=torch.ones_like(inside),
+                      mat=torch.zeros_like(hit.mat),
+                      tex=torch.full_like(hit.tex, -1),
+                      tri=torch.full_like(hit.tri, -1), u=zero, v=zero,
+                      tu=zero, tv=zero, medium=torch.full_like(hit.medium, i))
+    return hit, state
+
+
+def scene_hit(scene, ro: V3, rd: V3, t_min: float, t_max: float, active,
+              state, any_hit: bool = False, time=None):
+    """Triangles (the walk), then spheres, then media; returns
+    (Hit, state).  `any_hit` ends the triangle walk at its first hit;
+    the sphere and medium passes always run in full."""
+    if scene.n_tris > 0:
+        t, u, v, tri = lane_traverse(scene, ro, rd, t_min, t_max, active,
+                                     any_hit=any_hit)
+        hit = hit_from_kernel(scene, ro, rd, t, u, v, tri, t_max)
+    else:
+        hit = empty_hit(ro.x.shape, t_max, ro.x.device)
+    hit = sphere_pass(scene, ro, rd, t_min, hit, active, time=time)
+    return media_pass(scene, ro, rd, t_min, hit, active, state)

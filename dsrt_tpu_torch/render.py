@@ -1,14 +1,17 @@
 """Frame rendering: the sample loop, the salted-chunk schedule, tonemap.
 
 Port of dsrt_tpu/render.py:82-153 (`render_frame`, the parity renderer),
-:185-247 (`render_frame_fused`) and :274-338 (the per-dispatch ray budget).
+:185-247 (`render_frame_fused`, `fused_kind`) and :274-338 (the
+per-dispatch ray budget).
 
 `render_frame` runs the plain PyTorch path tracer on the scene's device.
-`render_frame_fused` runs the path kernel on a CUDA scene (and its plain
-version on a CPU scene); a frame above FUSED_DISPATCH_RAYS primary rays
-renders as ceil(spp/chunk) chunks whose LCG streams are salted with
-i * 0x9E3779B9 (chunk 0 unsalted), which defines the pixels of frames such
-as 800x450 at 1000 spp.
+`render_frame_fused` runs one of the two megakernels on a CUDA scene (and
+its plain version on a CPU scene): scenes with triangles go to the path
+kernel (ops/path_kernel.py), sphere-only scenes to the sphere kernel
+(ops/sphere_kernel.py); a CUDA scene that neither covers raises.  A frame
+above FUSED_DISPATCH_RAYS primary rays renders as ceil(spp/chunk) chunks
+whose LCG streams are salted with i * 0x9E3779B9 (chunk 0 unsalted),
+which defines the pixels of frames such as 800x450 at 1000 spp.
 
 Tonemap: average, clamp negatives, firefly clamp 10, pow(c, 1/gamma),
 clamp01, u8 with the 255.99 scale, vertical flip (row 0 = top).
@@ -20,10 +23,11 @@ import numpy as np
 import torch
 
 from dsrt_tpu.config import RenderConfig
-from dsrt_tpu_torch.ops import path_kernel
+from dsrt_tpu_torch.ops import path_kernel, sphere_kernel
 from dsrt_tpu_torch.ops.linalg import f64_op
+from dsrt_tpu_torch.ops.shade import render_samples
 
-# primary rays (width * height * spp) per path-kernel launch
+# primary rays (width * height * spp) per kernel launch
 FUSED_DISPATCH_RAYS = 256 * 1024 * 1024
 SALT_MIX = 0x9E3779B9
 
@@ -49,9 +53,26 @@ def render_frame(scene, cam, cfg: RenderConfig | None = None,
     if cfg is None:
         cfg = RenderConfig(width=cam.width, height=cam.height)
     spp = cfg.resolved_spp()
-    accum, nrays = path_kernel.path_render_plain(scene, cam, cfg, spp)
+    accum, nrays = render_samples(scene, cam, cfg, spp)
     img = tonemap(accum, cfg, spp)
     return (img, int(nrays)) if with_count else img
+
+
+def _kernel_of(scene, cfg):
+    """(kind, wrapper, why not covered) of the megakernel for this scene:
+    'tri' for scenes with triangles or quads, else 'sphere'."""
+    if scene.n_tris > 0 or scene.n_quads > 0:
+        return ("tri", path_kernel.path_render,
+                path_kernel.scope_error(scene, cfg))
+    return ("sphere", sphere_kernel.sphere_render,
+            sphere_kernel.scope_error(scene, cfg))
+
+
+def fused_kind(scene, cfg) -> str | None:
+    """Which megakernel covers this scene: 'tri' (the path kernel),
+    'sphere' (the sphere kernel), or None."""
+    kind, _, why = _kernel_of(scene, cfg)
+    return kind if why is None else None
 
 
 def fused_chunk_spp(cfg: RenderConfig,
@@ -68,16 +89,19 @@ def render_accum_fused(scene, cam, cfg: RenderConfig,
                        budget: int = FUSED_DISPATCH_RAYS):
     """Summed accumulators of the chunk schedule and the exact ray count
     (int64 tensor), left on the scene's device."""
+    _, launch, why = _kernel_of(scene, cfg)
+    if why is not None:
+        raise NotImplementedError(why)
     spp = cfg.resolved_spp()
     chunk = fused_chunk_spp(cfg, budget)
     if chunk is None:
-        return path_kernel.path_render(scene, cam, cfg, spp, salt=0)
+        return launch(scene, cam, cfg, spp, salt=0)
     accum = nrays = None
     done = i = 0
     while done < spp:
         spp_c = min(chunk, spp - done)
         salt = (i * SALT_MIX) & 0xFFFFFFFF
-        a, n = path_kernel.path_render(scene, cam, cfg, spp_c, salt=salt)
+        a, n = launch(scene, cam, cfg, spp_c, salt=salt)
         accum = a if accum is None else accum + a
         nrays = n if nrays is None else nrays + n
         done += spp_c
@@ -88,8 +112,8 @@ def render_accum_fused(scene, cam, cfg: RenderConfig,
 def render_frame_fused(scene, cam, cfg: RenderConfig,
                        with_count: bool = False,
                        budget: int = FUSED_DISPATCH_RAYS):
-    """One frame through the path kernel; (H, W, 3) u8 (and the exact ray
-    count with `with_count`).  Check `path_kernel.fused_supported`
+    """One frame through the megakernel that covers the scene; (H, W, 3)
+    u8 (and the exact ray count with `with_count`).  Check `fused_kind`
     first: other scenes raise NotImplementedError."""
     accum, nrays = render_accum_fused(scene, cam, cfg, budget)
     img = tonemap(accum, cfg, cfg.resolved_spp())

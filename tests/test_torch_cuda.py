@@ -4,6 +4,8 @@ These need an NVIDIA GPU and nvcc; elsewhere they skip.  On the card:
     python -m pytest tests/test_torch_cuda.py -m cuda
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -11,11 +13,12 @@ import torch
 from dsrt_tpu.config import RenderConfig
 from dsrt_tpu_torch.models.mesh_gen import (iss_standin_scene,
                                             write_panel_texture)
-from dsrt_tpu_torch.ops import path_kernel
-from dsrt_tpu_torch.ops.camera import point_camera_at
+from dsrt_tpu_torch.models import presets
+from dsrt_tpu_torch.ops import path_kernel, sphere_kernel
+from dsrt_tpu_torch.ops.camera import make_camera, point_camera_at
 from dsrt_tpu_torch.ops.linalg import V3
 from dsrt_tpu_torch.ops.trace import lane_traverse
-from dsrt_tpu_torch.render import render_frame, tonemap
+from dsrt_tpu_torch.render import render_frame, render_frame_fused, tonemap
 
 pytestmark = pytest.mark.cuda
 
@@ -85,3 +88,56 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda, scene_cpu):
         path_kernel.closest_hit(scene, V3(*(c.double() for c in ro)), rd)
     with pytest.raises(ValueError):
         path_kernel.closest_hit(scene_cpu, ro, rd)
+
+
+SPHERE_CASES = {
+    "rtiow_smoke_scene": (lambda: presets.rtiow_smoke_scene(), {},
+                          (0.0, 0.6, 2.0), 50),
+    "sphere_light_scene": (lambda: presets.sphere_light_scene(), {},
+                           (0.0, 0.6, 2.0), 50),
+    "volumetric_scene": (lambda: presets.volumetric_scene(), {},
+                         (0.0, 0.6, 2.0), 50),
+    "dof_motion": (lambda: presets.dof_motion_scene(sun=True),
+                   dict(aperture=0.2, time0=0.2, time1=0.8),
+                   (0.0, 0.4, 1.2), 60),
+    "env": (lambda: presets.env_sphere_scene(
+        np.random.default_rng(5).uniform(0.0, 2.0, (8, 16, 3)).astype(
+            np.float32), rotation_deg=30.0, scale=1.5), {},
+            (0.0, 0.6, 2.0), 50),
+}
+
+
+@pytest.mark.parametrize("name", list(SPHERE_CASES))
+def test_sphere_kernel_matches_plain_version(cuda, name):
+    """Identical accumulators and ray count: both sides take cos, sin and
+    log in double and round once, and the kernel is built without
+    contraction."""
+    make, extra, look, vfov = SPHERE_CASES[name]
+    cfg = RenderConfig(width=64, height=36, spp=4, max_depth=12, **extra)
+    cam = make_camera(look, (0.0, 0.0, -1.0), vfov=vfov, width=64,
+                      height=36, aperture=extra.get("aperture", 0.0))
+    scene_cpu = make()
+    before = sphere_kernel.LAUNCHES["dsrt_sphere_render"]
+    acc, n = sphere_kernel.sphere_render(scene_cpu.to(cuda), cam.to(cuda),
+                                         cfg)
+    torch.cuda.synchronize()
+    assert sphere_kernel.LAUNCHES["dsrt_sphere_render"] == before + 1
+    want, n_plain = sphere_kernel.sphere_render_plain(scene_cpu, cam, cfg,
+                                                      cfg.spp)
+    assert torch.equal(acc.cpu(), want)
+    assert int(n) == int(n_plain)
+    assert (want > 0).float().mean() > 0.05
+
+
+def test_sphere_frames_go_through_the_sphere_kernel(cuda):
+    scene = presets.volumetric_scene(device=cuda)
+    cfg = RenderConfig(width=64, height=36, spp=2, max_depth=8)
+    cam = make_camera((0.0, 0.6, 2.0), (0.0, 0.0, -1.0), vfov=50, width=64,
+                      height=36, device=cuda)
+    sphere_kernel.reset_launches()
+    img, n = render_frame_fused(scene, cam, cfg, with_count=True)
+    assert sphere_kernel.LAUNCHES["dsrt_sphere_render"] == 1
+    assert img.shape == (36, 64, 3) and n >= 64 * 36 * 2
+    bad = dataclasses.replace(scene, mat_pack=scene.mat_pack.double())
+    with pytest.raises(ValueError):
+        sphere_kernel.sphere_render(bad, cam, cfg)

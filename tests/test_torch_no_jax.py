@@ -12,10 +12,12 @@ import torch
 
 from dsrt_tpu.config import RenderConfig
 from dsrt_tpu_torch import driver
-from dsrt_tpu_torch.models.presets import single_triangle_scene
-from dsrt_tpu_torch.ops import build, path_kernel
+from dsrt_tpu_torch.models.presets import (single_triangle_scene,
+                                           volumetric_scene)
+from dsrt_tpu_torch.ops import build, path_kernel, sphere_kernel
 from dsrt_tpu_torch.ops.camera import make_camera
 from dsrt_tpu_torch.ops.linalg import V3
+from dsrt_tpu_torch.render import render_frame_fused
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "dsrt_tpu_torch"
@@ -38,6 +40,11 @@ def test_render_in_subprocess_leaves_jax_unimported():
         "img = render_frame(single_triangle_scene(), cam, "
         "RenderConfig(width=8, height=6, spp=1, max_depth=3))\n"
         "assert img.shape == (6, 8, 3) and img.max() > 0\n"
+        "from dsrt_tpu_torch import render_frame_fused, volumetric_scene\n"
+        "import dsrt_tpu_torch.ops.sphere_kernel\n"
+        "img = render_frame_fused(volumetric_scene(), cam, "
+        "RenderConfig(width=8, height=6, spp=1, max_depth=3))\n"
+        "assert img.shape == (6, 8, 3)\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -69,6 +76,17 @@ def test_non_cpu_tensors_never_fall_back_to_the_plain_version():
     with pytest.raises((ValueError, RuntimeError)):
         path_kernel.closest_hit(scene, ro, ro)
     assert path_kernel.LAUNCHES["dsrt_path_render"] == 0
+
+
+def test_non_cpu_sphere_scenes_never_fall_back_to_the_plain_version():
+    scene = volumetric_scene().to("meta")
+    cam = make_camera((0, 0.6, 2.0), (0, 0, -1), vfov=50, width=8, height=6)
+    cfg = RenderConfig(width=8, height=6, spp=1, max_depth=3)
+    with pytest.raises((ValueError, RuntimeError)):
+        sphere_kernel.sphere_render(scene, cam, cfg)
+    with pytest.raises((ValueError, RuntimeError)):
+        render_frame_fused(scene, cam, cfg)
+    assert sphere_kernel.LAUNCHES["dsrt_sphere_render"] == 0
 
 
 def test_cuda_request_without_a_card_raises(monkeypatch):

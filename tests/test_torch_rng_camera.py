@@ -140,5 +140,13 @@ def test_camera_from_reference_and_aperture():
     np.testing.assert_array_equal(tc.lower_left.numpy(),
                                   np.asarray(jc.lower_left))
     assert (tc.width, tc.height) == (32, 24)
-    with pytest.raises(NotImplementedError):
-        tcam.make_camera((0, 0, 1), (0, 0, 0), aperture=0.1)
+    # a thin-lens camera: same basis, lens radius half the aperture
+    jl = jcam.make_camera((0, 0.4, 1.2), (0, 0, -1), vfov=60, width=32,
+                          height=24, aperture=0.25, focus_dist=1.7)
+    tl = tcam.make_camera((0, 0.4, 1.2), (0, 0, -1), vfov=60, width=32,
+                          height=24, aperture=0.25, focus_dist=1.7)
+    for cam in (tl, tcam.camera_from_reference(jl)):
+        assert float(cam.lens_radius) == float(np.asarray(jl.lens_radius))
+        for f in ("lower_left", "horizontal", "vertical", "u", "v"):
+            np.testing.assert_array_equal(getattr(cam, f).numpy(),
+                                          np.asarray(getattr(jl, f)))

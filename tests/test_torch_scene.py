@@ -20,6 +20,9 @@ from dsrt_tpu_torch.models import mesh_gen as tmesh
 from dsrt_tpu_torch.models import presets as tpresets
 from dsrt_tpu_torch.models.scene import (META, TABLES, SceneBuilder,
                                          scene_from_reference)
+from test_envmap import _env_array as env_array
+from test_envmap import _scene as jenv_scene
+from test_fused_spheres import _dof_motion_scene as jdof_motion_scene
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
 
@@ -120,15 +123,48 @@ def test_flagship_scene_round_trip(tmp_path):
     assert_same_tables(scene_from_reference(ref), ref)
 
 
+SPHERE_SCENES = {
+    "rtiow": (tpresets.rtiow_smoke_scene, jpresets.rtiow_smoke_scene),
+    "sphere_light": (tpresets.sphere_light_scene,
+                     jpresets.sphere_light_scene),
+    "volumetric": (tpresets.volumetric_scene, jpresets.volumetric_scene),
+    "dof_motion": (lambda: tpresets.dof_motion_scene(sun=True),
+                   lambda: jdof_motion_scene(sun=True)),
+    "env": (lambda: tpresets.env_sphere_scene(env_array(), 30.0, 1.5),
+            lambda: jenv_scene(30.0, 1.5)),
+}
+
+
+@pytest.mark.parametrize("name", SPHERE_SCENES)
+def test_sphere_scene_tables_match(name):
+    """Spheres, moving centres, media, the light list and the sky: the
+    port's presets against the reference scenes they mirror, and
+    scene_from_reference on the reference scene."""
+    make_port, make_ref = SPHERE_SCENES[name]
+    port, ref = make_port(), make_ref()
+    assert port.n_spheres > 0 and port.n_tris == 0
+    assert_same_tables(port, ref)
+    assert_same_tables(scene_from_reference(ref), ref)
+
+
+def test_sphere_scene_contents():
+    vol = tpresets.volumetric_scene()
+    assert (vol.n_media, vol.n_lights, vol.has_ptex) == (1, 1, True)
+    assert vol.med_neg_inv_density.tolist() == [np.float32(-1.0 / 2.5)]
+    dof = tpresets.dof_motion_scene()
+    assert dof.has_moving and dof.n_lights == 1
+    assert dof.light_idx.tolist() == [3]
+    env = tpresets.env_sphere_scene(env_array(), 90.0, 2.0)
+    assert env.has_env and not env.has_image_tex
+    assert env.env_rotation == pytest.approx(np.pi / 2)
+    assert not tpresets.rtiow_smoke_scene().has_env
+
+
 def test_unported_primitives_raise():
     b = SceneBuilder()
     m = Material.lambertian()
-    for call in (lambda: b.add_sphere((0, 0, 0), 1.0, m),
-                 lambda: b.add_quad((0, 0, 0), (1, 0, 0), (0, 1, 0), m),
-                 lambda: b.add_box((0, 0, 0), (1, 1, 1), m),
-                 lambda: b.add_constant_medium_sphere((0, 0, 0), 1.0, 1.0,
-                                                      (1, 1, 1)),
-                 lambda: b.set_environment("sky.hdr")):
+    for call in (lambda: b.add_quad((0, 0, 0), (1, 0, 0), (0, 1, 0), m),
+                 lambda: b.add_box((0, 0, 0), (1, 1, 1), m)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
 
