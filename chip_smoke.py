@@ -8,10 +8,16 @@ plain PyTorch version, renders the flagship frame (textured ISS stand-in,
 `render_frame_fused`, runs the frame-loop driver over two poses, holds the
 sphere kernel against its plain version on five sphere scenes, and renders
 the two full-size sphere frames (rtiow 400x225 at 64 spp, volumetric
-800x450 at 32 spp) through `render_frame_fused`.  Each phase prints one
-line; any failure raises, so the exit code is nonzero.
-The last two lines are the kernels' JSON summary and
-{"ok": true, "device": {...}}.  Needs one CUDA device; imports no JAX.
+800x450 at 32 spp) through `render_frame_fused`.  Then the split pipeline
+(phases 9-12): the two traversal kernels against their plain versions on
+2^20 rays, the wavefront and queue loops on the card against the same
+loops on CPU copies, the full-size split-path frames (the untextured 51k
+stand-in and the mixed stand-in with three spheres, 800x450, 32 spp)
+through `render_frame_wavefront`, and the driver in wavefront and auto
+modes.  Each phase prints one line; any failure raises, so the exit code
+is nonzero.  The last two lines are the kernels' JSON summary and
+{"ok": true, "device": {...}}.  Needs one CUDA device; imports no JAX and
+nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -36,6 +42,10 @@ BENCH_CAM = (40.0, 60.0, 190.0)      # the flagship viewpoint
 # configs[1] and its volumetric bench cell
 SPHERE_FRAMES = (("rtiow_smoke_scene", 400, 225, 64),
                  ("volumetric_scene", 800, 450, 32))
+# float operations of one sphere test (oc, two dots, discriminant, sqrt,
+# two roots, range compares) and one medium's boundary interval
+SPHERE_FLOPS = 28
+MEDIUM_FLOPS = 40
 
 
 def phase(name: str, msg: str) -> None:
@@ -93,6 +103,11 @@ def device_ms(fn, kernel: str, reps: int) -> float:
     return us / 1e3 / reps
 
 
+def table_bytes(scene, names) -> int:
+    return sum(getattr(scene, k).numel() * getattr(scene, k).element_size()
+               for k in names)
+
+
 def random_rays(n: int, seed: int, device):
     """Rays from a shell around the station: half aimed at it, half in
     random directions (numpy, from a seed)."""
@@ -116,14 +131,17 @@ def sphere_cases():
     from dsrt_tpu_torch.models import presets
     env = np.random.default_rng(5).uniform(0.0, 2.0, (8, 16, 3))
     return [
-        ("rtiow", presets.rtiow_smoke_scene(), {}, (0.0, 0.6, 2.0), 50),
-        ("sphere_light", presets.sphere_light_scene(), {}, (0.0, 0.6, 2.0),
-         50),
-        ("volumetric", presets.volumetric_scene(), {}, (0.0, 0.6, 2.0), 50),
-        ("dof_motion", presets.dof_motion_scene(sun=True),
+        ("rtiow", presets.rtiow_smoke_scene(device="cpu"), {},
+         (0.0, 0.6, 2.0), 50),
+        ("sphere_light", presets.sphere_light_scene(device="cpu"), {},
+         (0.0, 0.6, 2.0), 50),
+        ("volumetric", presets.volumetric_scene(device="cpu"), {},
+         (0.0, 0.6, 2.0), 50),
+        ("dof_motion", presets.dof_motion_scene(sun=True, device="cpu"),
          dict(aperture=0.2, time0=0.2, time1=0.8), (0.0, 0.4, 1.2), 60),
         ("env", presets.env_sphere_scene(env.astype(np.float32),
-                                         rotation_deg=30.0, scale=1.5),
+                                         rotation_deg=30.0, scale=1.5,
+                                         device="cpu"),
          {}, (0.0, 0.6, 2.0), 50)]
 
 
@@ -131,10 +149,11 @@ def sphere_phases(dev) -> dict:
     """Phases 7-8: the sphere kernel against its plain version on five
     scenes, then the two full-size sphere frames through
     render_frame_fused.  Returns the kernel's entry of the JSON line."""
-    from dsrt_tpu.config import RenderConfig
+    from dsrt_tpu_torch.config import RenderConfig
     from dsrt_tpu_torch.models import presets
     from dsrt_tpu_torch.ops import sphere_kernel as sk
     from dsrt_tpu_torch.ops.camera import make_camera
+    from dsrt_tpu_torch.ops.traverse import roofline_ms
     from dsrt_tpu_torch.render import render_frame_fused, tonemap
 
     # 7. kernel vs plain on the card (and the plain version on the CPU),
@@ -142,7 +161,8 @@ def sphere_phases(dev) -> dict:
     for name, scene_cpu, extra, look, vfov in sphere_cases():
         cfg = RenderConfig(width=64, height=36, spp=4, max_depth=12, **extra)
         cam = make_camera(look, (0.0, 0.0, -1.0), vfov=vfov, width=64,
-                          height=36, aperture=extra.get("aperture", 0.0))
+                          height=36, aperture=extra.get("aperture", 0.0),
+                          device="cpu")
         scene, cam_d = scene_cpu.to(dev), cam.to(dev)
         acc_k, n_k = sk.sphere_render(scene, cam_d, cfg)
         acc_p, n_p = sk.sphere_render_plain(scene, cam_d, cfg, cfg.spp)
@@ -192,6 +212,13 @@ def sphere_phases(dev) -> dict:
         acc_k1, n_k1 = sk.sphere_render(scene, cam, cfg1)
         acc_p1, n_p1 = sk.sphere_render_plain(scene, cam, cfg1, 1)
         err1 = float((acc_k1 - acc_p1).abs().max())
+        # bound: every query tests every sphere and every medium (flops of
+        # trace.py sphere_pass / boundary_interval); tables in, accum out
+        bound, bound_by = roofline_ms(
+            int(n_p1) * (SPHERE_FLOPS * scene.n_spheres
+                         + MEDIUM_FLOPS * scene.n_media),
+            table_bytes(scene, ("mat_pack", "tex_pool")) + 247 * 4
+            + acc_p1.numel() * 4)
         phase("8 sphere frame",
               f"{name} {w}x{h} spp{spp} depth50: frame {secs:.4f} s (reps "
               f"{', '.join(f'{t:.4f}' for t in times)}), wrapper call "
@@ -208,7 +235,8 @@ def sphere_phases(dev) -> dict:
             "source": "dsrt_tpu_torch/csrc/sphere_kernel.cu",
             "replaces": "dsrt_tpu/ops/pallas_sphere.py:88",
             "launches": launches, "max_abs_err": err1, "ms": k1,
-            "plain_ms": p1, "shape": f"{w}x{h} spp1 max_depth50",
+            "plain_ms": p1, "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": None, "shape": f"{w}x{h} spp1 max_depth50",
             "frame_ms": secs * 1e3, "frame_wrapper_ms": k_full,
             "frame_device_ms": k_dev, "mrays_per_s": rays / secs / 1e6,
             "launches_by_frame": dict(
@@ -218,17 +246,345 @@ def sphere_phases(dev) -> dict:
     return entry
 
 
+def frame_compare(img_k, img_c):
+    """(share of identical u8 pixels, mean |d|) of two frames."""
+    d = np.abs(img_k.astype(int) - img_c.astype(int))
+    return float((d.max(-1) == 0).mean()), float(d.mean())
+
+
+def count_syncs(fn) -> int:
+    """Host-device synchronisations in one call of `fn`, as PyTorch's
+    sync debug mode reports them (.item(), bool() of a CUDA tensor,
+    nonzero, blocking copies)."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def profile_frame(fn):
+    """One call of `fn` under torch.profiler: (device ms of the traversal
+    kernels by name, device busy ms, host wall ms of the call, host ms
+    inside the CUDA runtime's synchronising calls and kernel launches)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name, busy = {}, 0.0
+    host = {"sync_ms": 0.0, "launch_ms": 0.0, "launches": 0}
+    for e in prof.key_averages():
+        if "Synchronize" in e.key:
+            host["sync_ms"] += e.self_cpu_time_total / 1e3
+        elif "LaunchKernel" in e.key:
+            host["launch_ms"] += e.self_cpu_time_total / 1e3
+            host["launches"] += e.count
+        us = getattr(e, "self_device_time_total", 0)
+        if us <= 0 or getattr(e, "device_type", None) != \
+                torch.autograd.DeviceType.CUDA:
+            continue
+        busy += us / 1e3
+        for k in ("traverse_sun_kernel", "traverse_kernel"):
+            if k in e.key:
+                by_name[k] = by_name.get(k, 0.0) + us / 1e3
+                break
+    return by_name, busy, wall, host
+
+
+def split_phases(dev, poses) -> dict:
+    """Phases 9-12, the split pipeline.  Returns the traversal kernels'
+    entries of the JSON line."""
+    from dsrt_tpu_torch import driver
+    from dsrt_tpu_torch.config import RenderConfig
+    from dsrt_tpu_torch.exec_opts import OPTS
+    from dsrt_tpu_torch.models.mesh_gen import (iss_mixed_scene,
+                                                iss_standin_scene)
+    from dsrt_tpu_torch.ops import path_kernel, traverse as tv, wavefront
+    from dsrt_tpu_torch.ops.camera import point_camera_at
+    from dsrt_tpu_torch.ops.linalg import V3
+    from dsrt_tpu_torch.ops.shade import sun_direction
+    from dsrt_tpu_torch.ops.trace import walk_counter
+    from dsrt_tpu_torch.render import (lane_layout, render_frame_queue,
+                                       render_frame_wavefront, tonemap)
+    from dsrt_tpu_torch.utils.pose import write_pose_file
+
+    t0 = time.perf_counter()
+    stand_cpu = iss_standin_scene(detail=12, device="cpu")
+    mixed_cpu = iss_mixed_scene(detail=12, device="cpu")
+    stand, mixed = stand_cpu.to(dev), mixed_cpu.to(dev)
+    phase("split scenes",
+          f"stand-in {stand.n_tris} triangles, mixed {mixed.n_tris} "
+          f"triangles + {mixed.n_spheres} spheres, built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    require(stand.n_tris > 50000 and mixed.n_spheres == 3, "split scenes")
+
+    # 9. the traversal kernels against their plain versions, 2^20 rays
+    n = 1 << 20
+    ro, rd = random_rays(n, 11, dev)
+    act = torch.from_numpy(np.random.default_rng(12).random(n) > 0.1).to(dev)
+    sdir = sun_direction(stand)
+    bias = 1e-3
+    out = {}
+    for name, any_hit in (("dsrt_traverse", False), ("any_hit", True)):
+        got = tv.traverse(stand, ro, rd, act, 1e-3, 1e9, any_hit=any_hit)
+        with walk_counter() as wc:
+            want = tv.traverse_plain(stand, ro, rd, act, 1e-3, 1e9,
+                                     any_hit=any_hit)
+        hits = int((want[3] >= 0).sum())
+        if any_hit:
+            mism = int(((got[3] >= 0) != (want[3] >= 0)).sum())
+            err = 0.0
+        else:
+            mism = int(((got[0] != want[0]) | (got[1] != want[1])
+                        | (got[2] != want[2]) | (got[3] != want[3])).sum())
+            err = float((got[0] - want[0]).abs().max())
+        ms = event_ms(lambda: tv.traverse(stand, ro, rd, act, 1e-3, 1e9,
+                                          any_hit=any_hit), 10)
+        plain = event_ms(lambda: tv.traverse_plain(stand, ro, rd, act, 1e-3,
+                                                   1e9, any_hit=any_hit), 1)
+        bound, by = tv.bound_ms(stand, n, int(wc["visits"]),
+                                int(wc["tests"]))
+        what = "hit masks" if any_hit else "(t,u,v,tri)"
+        phase("9 traverse", f"{'any-hit' if any_hit else 'closest'}: 2^20 "
+                            f"rays, {int(act.sum())} active, {hits} hits, "
+                            f"{mism} mismatches ({what}; "
+                            f"tolerance: none); kernel {ms:.3f} ms, plain "
+                            f"{plain:.1f} ms, bound {bound:.4f} ms by {by} "
+                            f"({int(wc['visits'])} visits, "
+                            f"{int(wc['tests'])} tests)")
+        require(mism == 0 and hits > 1000, f"dsrt_traverse ({name}) "
+                                           "disagrees with its plain version")
+        out[name] = dict(ms=ms, plain_ms=plain, max_abs_err=err,
+                         bound_ms=bound, bound_by=by)
+    got = tv.traverse_with_sun(stand, ro, rd, act, 1e-3, 1e9, sdir, bias)
+    with walk_counter() as wc:
+        want = tv.traverse_with_sun_plain(stand, ro, rd, act, 1e-3, 1e9,
+                                          sdir, bias)
+    hitm = want[3] >= 0
+    mism = int(((got[0] != want[0]) | (got[1] != want[1])
+                | (got[2] != want[2]) | (got[3] != want[3])).sum())
+    bmism = int((got[4] != want[4])[hitm].sum())
+    ms = event_ms(lambda: tv.traverse_with_sun(stand, ro, rd, act, 1e-3, 1e9,
+                                               sdir, bias), 10)
+    plain = event_ms(lambda: tv.traverse_with_sun_plain(
+        stand, ro, rd, act, 1e-3, 1e9, sdir, bias), 1)
+    bound, by = tv.bound_ms(stand, n, int(wc["visits"]), int(wc["tests"]),
+                            with_sun=True)
+    phase("9 traverse_sun", f"2^20 rays, {int(hitm.sum())} hits, "
+                            f"{int(want[4][hitm].sum())} blocked; {mism} "
+                            f"mismatches in (t,u,v,tri), {bmism} in blocked "
+                            f"on hit lanes (tolerance: none); kernel "
+                            f"{ms:.3f} ms, plain {plain:.1f} ms, bound "
+                            f"{bound:.4f} ms by {by}")
+    require(mism == 0 and bmism == 0 and 0 < int(want[4][hitm].sum())
+            < int(hitm.sum()), "dsrt_traverse_sun disagrees with its "
+                               "plain version")
+    out["dsrt_traverse_sun"] = dict(ms=ms, plain_ms=plain,
+                                    max_abs_err=float((got[0] - want[0])
+                                                      .abs().max()),
+                                    bound_ms=bound, bound_by=by)
+
+    # 10. the wave loops on the card against the same loops on CPU copies
+    cfg_s = RenderConfig(width=64, height=36, spp=4, max_depth=12)
+    cam_s = point_camera_at(SUNLIT_CAM, vfov=cfg_s.vfov, width=64,
+                            height=36, device="cpu")
+    small_cpu = {"flagship": stand_cpu,
+                 "mixed": iss_mixed_scene(detail=2, device="cpu")}
+    px, py, valid, _ = lane_layout(64, 36)
+    B = 2
+    lanes = [np.tile(a, (B, 1)) for a in (px, py, valid)]
+    lanes.append(np.repeat(np.arange(B), px.shape[0])[:, None]
+                 .repeat(1024, axis=1))
+    cases = [(k, v, False) for k, v in small_cpu.items()]
+    cases.append(("flagship", stand_cpu, True))
+    for name, sc_cpu, fused in cases:
+        OPTS.fused_sun = fused
+        try:
+            sc = sc_cpu.to(dev)
+            tv.reset_launches()
+            acc_k, n_k = wavefront.trace_accumulate(
+                sc, cfg_s, cam_s, *(torch.as_tensor(a, device=dev)
+                                    for a in lanes), cfg_s.spp // B)
+            q_k, qn_k = wavefront.trace_queue(sc, cfg_s, cam_s, 64, 36,
+                                              (4, 1024))
+            q_k2, _ = wavefront.trace_queue(sc, cfg_s, cam_s, 64, 36,
+                                            (4, 1024))
+            torch.cuda.synchronize()
+            launches = dict(tv.LAUNCHES)
+            acc_c, n_c = wavefront.trace_accumulate(
+                sc_cpu, cfg_s, cam_s, *(torch.as_tensor(a) for a in lanes),
+                cfg_s.spp // B)
+            q_c, qn_c = wavefront.trace_queue(sc_cpu, cfg_s, cam_s, 64, 36,
+                                              (4, 1024))
+        finally:
+            OPTS.fused_sun = False
+        k_img = torch.stack([c.cpu() for c in acc_k], -1).reshape(-1, 3)
+        c_img = torch.stack(list(acc_c), -1).reshape(-1, 3)
+        same_w = float((k_img == c_img).all(-1).float().mean())
+        err_w = float((k_img - c_img).abs().max())
+        qi_k = tonemap(q_k.reshape(36, 64, 3), cfg_s, 4)
+        qi_c = tonemap(q_c.reshape(36, 64, 3), cfg_s, 4)
+        same_q, mean_q = frame_compare(qi_k, qi_c)
+        phase("10 wave loops", f"{name}{' fused_sun' if fused else ''} "
+                               f"64x36 spp4 depth12: wavefront accumulators "
+                               f"identical on {same_w:.4%} of lanes, max "
+                               f"|d| {err_w:.3g}, rays {int(n_k)} vs CPU "
+                               f"{int(n_c)}; queue u8 {same_q:.4%} "
+                               f"identical, mean |d| {mean_q:.4f}, rays "
+                               f"{int(qn_k)} vs {int(qn_c)}, two card runs "
+                               f"bit-equal {torch.equal(q_k, q_k2)} "
+                               f"(tolerance: >= 99% identical, mean <= 0.5 "
+                               f"u8, rays equal); launches {launches}")
+        require(same_w >= 0.99 and same_q >= 0.99 and mean_q <= 0.5,
+                f"wave loops disagree with the CPU plain walk on {name}")
+        require(int(n_k) == int(n_c) and int(qn_k) == int(qn_c),
+                f"ray counts disagree on {name}")
+        require(torch.equal(q_k, q_k2), "queue banking is not deterministic")
+        require(launches["dsrt_traverse_sun" if fused else "dsrt_traverse"]
+                > 0, "the wave loops launched no traversal kernel")
+
+    # 11. full size through render_frame_wavefront (spp_batch 4)
+    cfg = RenderConfig(width=800, height=450, spp=32, max_depth=50)
+    cam = point_camera_at(BENCH_CAM, vfov=cfg.vfov, width=800, height=450,
+                          device=dev)
+    tv.reset_launches()
+    frames = {}
+    for name, sc, fused in (("stand-in", stand, False),
+                            ("mixed", mixed, False),
+                            ("stand-in fused_sun", stand, True)):
+        OPTS.fused_sun = fused
+        try:
+            before = dict(tv.LAUNCHES)
+            secs, times, (img, rays) = wall_time(
+                lambda: render_frame_wavefront(sc, cam, cfg, spp_batch=4,
+                                               with_count=True), 3)
+            by_name, busy, wall, host = profile_frame(
+                lambda: render_frame_wavefront(sc, cam, cfg, spp_batch=4))
+            launched = {k: v - before[k] for k, v in tv.LAUNCHES.items()}
+            syncs = count_syncs(
+                lambda: render_frame_wavefront(sc, cam, cfg, spp_batch=4))
+        finally:
+            OPTS.fused_sun = False
+        # one traversal launch a query; two queries a wave unless fused
+        waves = sum(launched.values()) / 5 / (1 if fused else 2)
+        frames[name] = dict(secs=secs, rays=rays, launches=launched,
+                            kernel_ms=by_name, busy_ms=busy, wall_ms=wall,
+                            waves=waves, syncs=syncs, host=host)
+        phase("11 split frame", f"{name} 800x450 spp32 depth50 spp_batch4: "
+                                f"frame {secs:.4f} s (reps "
+                                f"{', '.join(f'{t:.4f}' for t in times)}), "
+                                f"{rays} rays exact, "
+                                f"{rays / secs / 1e6:.2f} Mrays/s; launches "
+                                f"{launched} (5 frames), {waves:.0f} waves "
+                                f"a frame, {syncs} host syncs a frame "
+                                f"({syncs / waves:.1f} a wave); profiled "
+                                f"frame: wall {wall:.1f} ms, traversal "
+                                f"kernels {by_name} ms, device busy "
+                                f"{busy:.1f} ms, idle share "
+                                f"{1 - busy / wall:.1%}, host in sync calls "
+                                f"{host['sync_ms']:.1f} ms and in "
+                                f"{host['launches']} kernel launches "
+                                f"{host['launch_ms']:.1f} ms; "
+                                f"host share a wave of the unprofiled "
+                                f"frame {(secs * 1e3 - busy) / waves:.2f} ms")
+        require(img.shape == (450, 800, 3) and img.max() > 0,
+                f"{name} split frame")
+        require(rays >= 800 * 450 * 32, "ray count below one per sample")
+        require(sum(launched.values()) > 0, "no traversal launch")
+    launches = dict(tv.LAUNCHES)
+    require(launches["dsrt_traverse"] > 0 and launches["dsrt_traverse_sun"]
+            > 0, "a traversal kernel was not launched by the split frames")
+    t0 = time.perf_counter()
+    img_q = render_frame_queue(stand, cam, cfg)
+    torch.cuda.synchronize()
+    t_q = time.perf_counter() - t0
+    phase("11 queue frame", f"stand-in 800x450 spp32 depth50: one "
+                            f"render_frame_queue frame {t_q:.4f} s (first "
+                            f"call), lit {(img_q > 0).mean():.3f}")
+    require(img_q.shape == (450, 800, 3) and img_q.max() > 0, "queue frame")
+
+    # 12. the driver: two poses in wavefront mode, the mixed scene in auto
+    import contextlib
+    import io
+    frames_dir = os.path.join(OUT, "frames_split")
+    before = dict(tv.LAUNCHES)
+    rc = driver.main(["--input_txt", poses, "--output_dir", frames_dir,
+                      "--wipe", "--width", "320", "--height", "180",
+                      "--spp", "16", "--spp_batch", "4", "--standin_detail",
+                      "12", "--mode", "wavefront", "--device", "cuda"])
+    pngs = sorted(f for f in os.listdir(frames_dir) if f.endswith(".png"))
+    require(rc == 0 and len(pngs) == 2
+            and tv.LAUNCHES["dsrt_traverse"] > before["dsrt_traverse"],
+            "driver wavefront frames")
+    one_pose = os.path.join(OUT, "pose1.txt")
+    model = np.array([1.0e9, 1.5e9, 2.0e9])
+    write_pose_file(one_pose, model + np.array([list(BENCH_CAM)]),
+                    model[None], yaw=0.0)
+    log = io.StringIO()
+    mixed_dir = os.path.join(OUT, "frames_mixed")
+    path_before = path_kernel.LAUNCHES["dsrt_path_render"]
+    with contextlib.redirect_stdout(log):
+        rc2 = driver.run(driver.build_parser().parse_args(
+            ["--input_txt", one_pose, "--output_dir", mixed_dir, "--wipe",
+             "--width", "320", "--height", "180", "--spp", "16",
+             "--mode", "auto", "--device", "cuda"]), scene=mixed)
+    chose = "render (wavefront on cuda)" in log.getvalue()
+    path_launches = path_kernel.LAUNCHES["dsrt_path_render"] - path_before
+    phase("12 driver", f"wavefront rc {rc}, frames {pngs}; mixed scene in "
+                       f"auto mode rc {rc2}, chose wavefront {chose}, path "
+                       f"kernel launches {path_launches}")
+    require(rc2 == 0 and chose and path_launches == 0,
+            "auto mode did not choose wavefront")
+
+    entries = {}
+    for name, src_name in (("dsrt_traverse", "dsrt_traverse"),
+                           ("dsrt_traverse_sun", "dsrt_traverse_sun")):
+        e = out[src_name]
+        entries[name] = {
+            "name": name, "route": "cuda",
+            "source": "dsrt_tpu_torch/csrc/traverse_kernel.cu",
+            "replaces": ("dsrt_tpu/ops/pallas_trace.py:386"
+                         if name == "dsrt_traverse"
+                         else "dsrt_tpu/ops/pallas_trace.py:399"),
+            "launches": launches[name], "max_abs_err": e["max_abs_err"],
+            "ms": e["ms"], "plain_ms": e["plain_ms"],
+            "bound_ms": e["bound_ms"], "bound_by": e["bound_by"],
+            "library_ms": None, "shape": "2^20 rays, 51k-triangle stand-in",
+            "frames": {k: {"frame_ms": v["secs"] * 1e3, "rays": v["rays"],
+                           "mrays_per_s": v["rays"] / v["secs"] / 1e6,
+                           "kernel_device_ms": v["kernel_ms"],
+                           "device_busy_ms": v["busy_ms"],
+                           "profiled_wall_ms": v["wall_ms"],
+                           "waves": v["waves"], "host_syncs": v["syncs"],
+                           "host_ms": v["host"]}
+                       for k, v in frames.items()}}
+    entries["dsrt_traverse"]["any_hit"] = out["any_hit"]
+    return entries
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from dsrt_tpu.config import RenderConfig
+    from dsrt_tpu_torch.config import RenderConfig
     from dsrt_tpu_torch import driver
     from dsrt_tpu_torch.models.mesh_gen import (iss_standin_scene,
                                                 write_panel_texture)
     from dsrt_tpu_torch.ops import build, path_kernel
     from dsrt_tpu_torch.ops.camera import point_camera_at
-    from dsrt_tpu_torch.ops.trace import lane_traverse
+    from dsrt_tpu_torch.ops.trace import lane_traverse, walk_counter
+    from dsrt_tpu_torch.ops.traverse import (MT_FLOPS, SLAB_FLOPS,
+                                             roofline_ms, traverse)
     from dsrt_tpu_torch.render import (render_frame, render_frame_fused,
                                        tonemap)
 
@@ -259,7 +615,7 @@ def main() -> int:
         tex = os.path.join(td, "panel.png")
         write_panel_texture(tex)
         t0 = time.perf_counter()
-        scene_cpu = iss_standin_scene(detail=12, tex_path=tex)
+        scene_cpu = iss_standin_scene(detail=12, tex_path=tex, device="cpu")
     scene = scene_cpu.to(dev)
     require(scene.n_tris > 50000 and scene.has_image_tex, "flagship scene")
     phase("scene", f"{scene.n_tris} triangles, {scene.n_nodes} nodes, "
@@ -270,9 +626,9 @@ def main() -> int:
     # 3. closest hit: kernel vs the plain walk, 2^20 rays, exact
     ro, rd = random_rays(1 << 20, 3, dev)
     act = torch.ones(ro.x.shape, dtype=torch.bool, device=dev)
-    t_k = event_ms(lambda: path_kernel.closest_hit(scene, ro, rd), 10)
+    t_k = event_ms(lambda: traverse(scene, ro, rd, act, 1e-3, 1e9), 10)
     t_p = event_ms(lambda: lane_traverse(scene, ro, rd, 1e-3, 1e9, act), 1)
-    hit_k = path_kernel.closest_hit(scene, ro, rd)
+    hit_k = traverse(scene, ro, rd, act, 1e-3, 1e9)
     hit_p = lane_traverse(scene, ro, rd, 1e-3, 1e9, act)
     mism = int(((hit_k[3] != hit_p[3]) | (hit_k[0] != hit_p[0])
                 | (hit_k[1] != hit_p[1]) | (hit_k[2] != hit_p[2])).sum())
@@ -285,7 +641,7 @@ def main() -> int:
     # 4. frame check: the path kernel vs the plain renderer on CPU copies
     cfg_s = RenderConfig(width=64, height=36, spp=2, max_depth=8)
     cam_s = point_camera_at(SUNLIT_CAM, vfov=cfg_s.vfov, width=64,
-                            height=36)
+                            height=36, device="cpu")
     acc_k, n_k = path_kernel.path_render(scene, cam_s.to(dev), cfg_s)
     img_k = tonemap(acc_k, cfg_s, cfg_s.spp)
     img_p, n_p = render_frame(scene_cpu, cam_s, cfg_s, with_count=True)
@@ -337,7 +693,14 @@ def main() -> int:
     p1 = event_ms(lambda: path_kernel.path_render_plain(scene, cam, cfg1, 1),
                   1)
     acc_k1, n_k1 = path_kernel.path_render(scene, cam, cfg1)
-    acc_p1, n_p1 = path_kernel.path_render_plain(scene, cam, cfg1, 1)
+    with walk_counter() as wc:
+        acc_p1, n_p1 = path_kernel.path_render_plain(scene, cam, cfg1, 1)
+    # bound: the walk's node visits and triangle tests on these inputs
+    # (counted by the plain version), tables in, accum out
+    bound, bound_by = roofline_ms(
+        int(wc["visits"]) * SLAB_FLOPS + int(wc["tests"]) * MT_FLOPS,
+        table_bytes(scene, ("bvh_pack", "thr_pack", "tri_pack", "tri_shade",
+                            "mat_pack", "tex_pool")) + acc_p1.numel() * 4)
     err1 = float((acc_k1 - acc_p1).abs().max())
     same1 = float((acc_k1 == acc_p1).all(dim=-1).float().mean())
     phase("5 times", f"kernel alone 800x450 spp32: {k32:.3f} ms "
@@ -353,13 +716,14 @@ def main() -> int:
         "source": "dsrt_tpu_torch/csrc/path_kernel.cu",
         "replaces": "dsrt_tpu/ops/pallas_path.py:477",
         "launches": launches["dsrt_path_render"],
-        "max_abs_err": err1, "ms": k1, "plain_ms": p1,
+        "max_abs_err": err1, "ms": k1, "plain_ms": p1, "bound_ms": bound,
+        "bound_by": bound_by, "library_ms": None,
         "shape": "800x450 spp1 max_depth50", "frame_ms": secs * 1e3,
         "frame_kernel_ms": k32, "mrays_per_s": rays / secs / 1e6}
 
     # 6. the driver over two poses
     poses = os.path.join(OUT, "poses.txt")
-    from dsrt_tpu.utils.pose import write_pose_file
+    from dsrt_tpu_torch.utils.pose import write_pose_file
     model = np.array([1.0e9, 1.5e9, 2.0e9])   # Sun at the world origin
     write_pose_file(poses, model + np.array([[40.0, 60.0, 190.0],
                                              [-60.0, 20.0, 150.0]]),
@@ -372,7 +736,7 @@ def main() -> int:
                           "--wipe", "--width", "320", "--height", "180",
                           "--spp", "16", "--standin_detail", "12",
                           "--standin_tex", tex, "--device", "cuda"])
-    from dsrt_tpu.utils.image_io import read_png
+    from dsrt_tpu_torch.utils.image_io import read_png
     pngs = sorted(f for f in os.listdir(frames) if f.endswith(".png"))
     lit = [float((read_png(os.path.join(frames, f)) > 0).mean())
            for f in pngs]
@@ -380,8 +744,12 @@ def main() -> int:
     require(rc == 0 and len(pngs) == 2 and min(lit) > 0, "driver frames")
 
     kernels["dsrt_sphere_render"] = sphere_phases(dev)
+    kernels.update(split_phases(dev, poses))
 
     require("jax" not in sys.modules, "jax was imported")
+    require(not [m for m in sys.modules
+                 if m == "dsrt_tpu" or m.startswith("dsrt_tpu.")],
+            "the JAX package was imported")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

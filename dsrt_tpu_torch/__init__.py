@@ -9,14 +9,17 @@ the environment sky, depth of field and motion blur — through a second
 (csrc/sphere_kernel.cu).  Every kernel has a plain PyTorch version that
 the CPU tests hold against the JAX reference.
 
-The package imports torch and never jax; it reuses the JAX-free host
-modules of dsrt_tpu (config, materials, OBJ loader, textures, BVH
-builder, mesh generator, image I/O, poses, orbit CLI).
+The package imports torch and never jax, nor anything of dsrt_tpu: it
+keeps its own copies of the host modules it needs (config, materials,
+OBJ loader, textures, BVH builder and its native C++ source, mesh
+generator, image I/O, poses, timing, transforms).  Scene builders and
+cameras put their tensors on the card unless the caller passes a
+device; with device="cpu" every kernel wrapper takes its plain version.
 """
 
 __version__ = "0.1.0"
 
-from dsrt_tpu.config import RenderConfig, SunConfig  # noqa: F401
+from dsrt_tpu_torch.config import RenderConfig, SunConfig  # noqa: F401
 
 
 def __getattr__(name):
@@ -36,8 +39,8 @@ def __getattr__(name):
         "SceneBuilder": ("dsrt_tpu_torch.models.scene", "SceneBuilder"),
         "iss_standin_scene": ("dsrt_tpu_torch.models.mesh_gen",
                               "iss_standin_scene"),
-        "Material": ("dsrt_tpu.models.materials", "Material"),
-        "load_obj": ("dsrt_tpu.models.obj", "load_obj"),
+        "Material": ("dsrt_tpu_torch.models.materials", "Material"),
+        "load_obj": ("dsrt_tpu_torch.models.obj", "load_obj"),
     }
     if name in lazy:
         import importlib

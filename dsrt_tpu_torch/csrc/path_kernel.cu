@@ -1,5 +1,4 @@
-// The path-tracing megakernel for Hopper (sm_90a), and a closest-hit
-// kernel over the same walk.
+// The path-tracing megakernel for Hopper (sm_90a).
 //
 // Replaces dsrt_tpu/ops/pallas_path.py `_path_kernel` (launched by
 // `_run_path`) for its triangle scope: triangle meshes, flat normals,
@@ -192,21 +191,6 @@ __global__ void __launch_bounds__(BLOCK_W* BLOCK_H)
   if (threadIdx.x == 0 && threadIdx.y == 0) atomicAdd(a.nrays, block_rays);
 }
 
-__global__ void __launch_bounds__(256)
-    closest_hit_kernel(Tables tb, const float* ro, const float* rd, float* t_out,
-                       float* u_out, float* v_out, int* tri_out, int n, float t_min,
-                       float t_max) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  f3 o = mk(ro[3 * i], ro[3 * i + 1], ro[3 * i + 2]);
-  f3 d = mk(rd[3 * i], rd[3 * i + 1], rd[3 * i + 2]);
-  WalkHit h = walk<false>(tb, o, d, t_min, t_max);
-  t_out[i] = h.t;
-  u_out[i] = h.u;
-  v_out[i] = h.v;
-  tri_out[i] = h.tri;
-}
-
 }  // namespace dsrt
 
 extern "C" {
@@ -251,19 +235,6 @@ int dsrt_path_render(const float* bvh, const float* thr, const float* tri,
   dim3 grid((width + dsrt::BLOCK_W - 1) / dsrt::BLOCK_W,
             (height + dsrt::BLOCK_H - 1) / dsrt::BLOCK_H);
   dsrt::path_render_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
-int dsrt_closest_hit(const float* bvh, const float* thr, const float* tri,
-                     const float* ro, const float* rd, float* t_out, float* u_out,
-                     float* v_out, int* tri_out, int n, int end, int tri_rows,
-                     float t_min, float t_max, void* stream) {
-  dsrt::Tables tb{bvh, thr, tri, end, tri_rows};
-  int threads = 256;
-  int blocks = (n + threads - 1) / threads;
-  if (blocks > 0)
-    dsrt::closest_hit_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        tb, ro, rd, t_out, u_out, v_out, tri_out, n, t_min, t_max);
   return (int)cudaGetLastError();
 }
 

@@ -1,16 +1,23 @@
 """Frame-loop driver and CLI (port of dsrt_tpu/driver.py).
 
 Per frame: pose -> float64 world->model transform -> camera aim ->
-path-kernel render -> PNG.  The scene is compiled once; each frame only
-swaps the sun direction (`Scene.with_sun`).
+render -> PNG.  The scene is compiled once; each frame only swaps the sun
+direction (`Scene.with_sun`).  `--mode` picks the renderer as the JAX
+driver does (dsrt_tpu/driver.py:317-350): `auto` takes the megakernel
+that covers the scene (`fused_kind`) and the split pipeline
+(`render_frame_wavefront`) for every other scene; `fused` falls back to
+wavefront the same way, with a note; `parity`, `wavefront` and `queue`
+force a renderer.  Wavefront's sample slots halve until they divide spp.
 
 Usage:
     python -m dsrt_tpu_torch.driver --input_txt poses.txt --output_dir out \
         [--obj mesh.obj | --standin_detail 2 --standin_tex panel.png] \
-        [--width 800 --height 450] [--spp 1000] [--device cuda]
+        [--width 800 --height 450] [--spp 1000] [--device cuda] \
+        [--mode auto|fused|parity|wavefront|queue] [--spp_batch 8]
 
-`--device cuda` (the default) runs the CUDA path kernel and fails when no
-CUDA device is present; `--device cpu` runs the plain PyTorch version.
+`--device cuda` (the default) runs the CUDA kernels and fails when no
+CUDA device is present; `--device cpu` runs their plain PyTorch
+versions.
 """
 
 from __future__ import annotations
@@ -22,15 +29,18 @@ import time
 
 import torch
 
-from dsrt_tpu.config import RenderConfig
-from dsrt_tpu.models.materials import Material
-from dsrt_tpu.utils.image_io import write_png, write_ppm
-from dsrt_tpu.utils.pose import default_pose, read_pose_file
-from dsrt_tpu.utils.timing import StageTimer, mrays_per_sec
-from dsrt_tpu.utils.transform import pose_to_frame
+from dsrt_tpu_torch import device as devices
+from dsrt_tpu_torch.config import RenderConfig
+from dsrt_tpu_torch.models.materials import Material
+from dsrt_tpu_torch.utils.image_io import write_png, write_ppm
+from dsrt_tpu_torch.utils.pose import default_pose, read_pose_file
+from dsrt_tpu_torch.utils.timing import StageTimer, mrays_per_sec
+from dsrt_tpu_torch.utils.transform import pose_to_frame
 from dsrt_tpu_torch.models.scene import SceneBuilder
 from dsrt_tpu_torch.ops.camera import point_camera_at
-from dsrt_tpu_torch.render import render_frame_fused
+from dsrt_tpu_torch.render import (fused_kind, render_frame,
+                                   render_frame_fused, render_frame_queue,
+                                   render_frame_wavefront)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -68,16 +78,54 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--timings_tsv", default="",
                    help="write per-stage timings TSV here")
     p.add_argument("--device", default="cuda",
-                   help="torch device: cuda (the path kernel) or cpu "
-                        "(the plain version)")
+                   help="torch device: cuda (the kernels) or cpu (their "
+                        "plain versions)")
+    p.add_argument("--mode",
+                   choices=["auto", "fused", "parity", "wavefront", "queue"],
+                   default="auto",
+                   help="auto: the megakernel when one covers the scene, "
+                        "else wavefront. fused: one megakernel launch a "
+                        "frame. parity: the sequential per-pixel sample "
+                        "loop. wavefront: the split pipeline with per-lane "
+                        "regeneration. queue: the split pipeline as one "
+                        "global work queue (auto-bands huge frames).")
+    p.add_argument("--spp_batch", type=int, default=8,
+                   help="concurrent sample slots per pixel (wavefront)")
     return p
 
 
+def resolve_mode(mode: str, scene, cfg) -> str:
+    """The renderer `--mode` runs on this scene (the JAX driver's
+    dispatch): auto and fused take the megakernel that covers the scene,
+    else wavefront."""
+    if mode in ("auto", "fused"):
+        if fused_kind(scene, cfg) is not None:
+            return "fused"
+        if mode == "fused":
+            print("  fused mode unsupported for this scene; falling back "
+                  "to wavefront")
+        return "wavefront"
+    return mode
+
+
+def render(mode: str, scene, cam, cfg, spp_batch: int):
+    """(u8 image, exact ray count or None) of one frame."""
+    if mode == "fused":
+        return render_frame_fused(scene, cam, cfg, with_count=True)
+    if mode == "wavefront":
+        batch = spp_batch
+        while cfg.spp % batch != 0:
+            batch //= 2
+        return render_frame_wavefront(scene, cam, cfg,
+                                      spp_batch=max(batch, 1),
+                                      with_count=True)
+    if mode == "queue":
+        return render_frame_queue(scene, cam, cfg), None
+    return render_frame(scene, cam, cfg, with_count=True)
+
+
 def resolve_device(name: str) -> torch.device:
-    dev = torch.device(name)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda: no CUDA device is available "
-                           "(use --device cpu for the plain version)")
+    dev = devices.resolve_device(name)
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {name!r}")
     return dev
@@ -86,11 +134,11 @@ def resolve_device(name: str) -> torch.device:
 def build_scene(args, timer: StageTimer, device):
     with timer.stage("mesh_load"):
         if args.obj:
-            from dsrt_tpu.models.obj import load_obj
+            from dsrt_tpu_torch.models.obj import load_obj
             mesh = load_obj(args.obj, Material.lambertian((0.73, 0.73, 0.73)),
                             args.scale)
         else:
-            from dsrt_tpu.models.mesh_gen import iss_standin_mesh
+            from dsrt_tpu_torch.models.mesh_gen import iss_standin_mesh
             mesh = iss_standin_mesh(args.standin_detail,
                                     tex_path=args.standin_tex)
     with timer.stage("scene_compile"):
@@ -104,7 +152,9 @@ def build_scene(args, timer: StageTimer, device):
     return scene
 
 
-def run(args) -> int:
+def run(args, scene=None) -> int:
+    """Render every pose of the pose file; `scene` (compiled on the
+    device of --device) replaces the scene the mesh flags describe."""
     device = resolve_device(args.device)
     timer = StageTimer()
     os.makedirs(args.output_dir, exist_ok=True)
@@ -116,7 +166,8 @@ def run(args) -> int:
 
     print(f"Using input_txt : {args.input_txt or '(none)'}")
     print(f"Using output_dir: {args.output_dir}")
-    scene = build_scene(args, timer, device)
+    if scene is None:
+        scene = build_scene(args, timer, device)
     print(timer.summary())
 
     poses = []
@@ -154,13 +205,15 @@ def run(args) -> int:
                               vfov=args.vfov, width=args.width,
                               height=args.height, device=device)
         frame_scene = scene.with_sun(frame.sun_dir_model)
+        mode = resolve_mode(args.mode, frame_scene, cfg)
         t0 = time.perf_counter()
-        img, nrays = render_frame_fused(frame_scene, cam, cfg,
-                                        with_count=True)
+        img, nrays = render(mode, frame_scene, cam, cfg, args.spp_batch)
         dt = time.perf_counter() - t0
         timer.log("render", dt)
-        print(f"  render: {dt*1e3:.0f} ms  ({mrays_per_sec(nrays, dt):.1f} "
-              f"Mrays/s on {device.type}, {nrays} rays exact)")
+        rays = ("" if nrays is None else
+                f", {mrays_per_sec(nrays, dt):.1f} Mrays/s, {nrays} rays "
+                "exact")
+        print(f"  render ({mode} on {device.type}): {dt*1e3:.0f} ms{rays}")
         with timer.stage("encode"):
             write_png(png, img)
             if args.save_ppm:

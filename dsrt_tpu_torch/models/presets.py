@@ -9,18 +9,20 @@
 - `dof_motion_scene`, `env_sphere_scene`: sphere scenes for depth of
   field with motion blur, and for the environment-map sky.
 - `single_triangle_scene`, `random_tri_soup_scene`: triangle scenes.
+
+Every builder puts its tables on the card unless `device` says otherwise.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from dsrt_tpu.models.materials import Material
+from dsrt_tpu_torch.models.materials import Material
 from dsrt_tpu_torch.models.scene import Scene, SceneBuilder
 
 
 def rtiow_smoke_scene(sun: bool = True, seed: int = 1337,
-                      device="cpu") -> Scene:
+                      device=None) -> Scene:
     b = SceneBuilder(sun_enabled=sun, sun_dir=(-0.4, -0.8, -0.45),
                      sun_radiance=(6.0, 5.7, 5.4), seed=seed)
     b.add_sphere((0.0, -100.5, -1.0), 100.0,
@@ -32,7 +34,7 @@ def rtiow_smoke_scene(sun: bool = True, seed: int = 1337,
     return b.build(device=device)
 
 
-def sphere_light_scene(seed: int = 1337, device="cpu") -> Scene:
+def sphere_light_scene(seed: int = 1337, device=None) -> Scene:
     b = SceneBuilder(sun_enabled=False, seed=seed)
     b.add_sphere((0.0, -100.5, -1.0), 100.0,
                  Material.lambertian((0.73, 0.73, 0.73)))
@@ -44,7 +46,7 @@ def sphere_light_scene(seed: int = 1337, device="cpu") -> Scene:
     return b.build(device=device)
 
 
-def volumetric_scene(seed: int = 1337, device="cpu") -> Scene:
+def volumetric_scene(seed: int = 1337, device=None) -> Scene:
     b = SceneBuilder(sun_enabled=True, sun_dir=(-0.3, -0.9, -0.2),
                      sun_radiance=(7.0, 6.6, 6.2), seed=seed)
     b.add_sphere((0.0, -100.5, -1.0), 100.0,
@@ -59,7 +61,7 @@ def volumetric_scene(seed: int = 1337, device="cpu") -> Scene:
 
 
 def dof_motion_scene(sun: bool = False, seed: int = 1337,
-                     device="cpu") -> Scene:
+                     device=None) -> Scene:
     """A moving diffuse sphere, a small fuzzy metal sphere and a sphere
     light over the ground (the scene of tests/test_fused_spheres.py
     `_dof_motion_scene`); render with an aperture and an open shutter."""
@@ -78,7 +80,7 @@ def dof_motion_scene(sun: bool = False, seed: int = 1337,
 
 def env_sphere_scene(env: np.ndarray, rotation_deg: float = 0.0,
                      scale: float = 1.0, seed: int = 1337,
-                     device="cpu") -> Scene:
+                     device=None) -> Scene:
     """Two spheres under an equirectangular sky `env`, an (H, W, 3)
     linear float array (the scene of tests/test_envmap.py `_scene`)."""
     b = SceneBuilder(sun_enabled=False, seed=seed)
@@ -91,7 +93,7 @@ def env_sphere_scene(env: np.ndarray, rotation_deg: float = 0.0,
 
 
 def single_triangle_scene(sun: bool = True, seed: int = 1337,
-                          device="cpu") -> Scene:
+                          device=None) -> Scene:
     """One triangle facing +Z."""
     b = SceneBuilder(sun_enabled=sun, sun_dir=(0.0, -0.3, -1.0),
                      sun_radiance=(5.0, 5.0, 5.0), seed=seed)
@@ -102,7 +104,7 @@ def single_triangle_scene(sun: bool = True, seed: int = 1337,
 
 
 def random_tri_soup_scene(n: int = 256, sun: bool = True, seed: int = 1337,
-                          rng_seed: int = 7, device="cpu") -> Scene:
+                          rng_seed: int = 7, device=None) -> Scene:
     """Random triangle soup in a unit-ish box in front of the camera."""
     rng = np.random.default_rng(rng_seed)
     b = SceneBuilder(sun_enabled=sun, sun_dir=(-0.2, -1.0, -0.4),

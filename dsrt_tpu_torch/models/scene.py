@@ -32,10 +32,11 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from dsrt_tpu.models.bvh_build import BVH, build_bvh, collapse_wide
-from dsrt_tpu.models.materials import (DEFAULT_MATERIAL, DIFFUSE_LIGHT,
-                                       Material)
-from dsrt_tpu.models.textures import TextureRegistry
+from dsrt_tpu_torch.device import resolve_device
+from dsrt_tpu_torch.models.bvh_build import BVH, build_bvh, collapse_wide
+from dsrt_tpu_torch.models.materials import (DEFAULT_MATERIAL, DIFFUSE_LIGHT,
+                                             Material)
+from dsrt_tpu_torch.models.textures import TextureRegistry
 
 # (field name, dtype) of every table the port keeps, in the reference
 # Scene's field names
@@ -122,10 +123,11 @@ class Scene:
             np.asarray(sun_dir, np.float32), device=self.device))
 
 
-def scene_from_reference(ref, device="cpu") -> Scene:
+def scene_from_reference(ref, device=None) -> Scene:
     """Scene from any object with the reference Scene's fields; arrays are
     read with np.asarray, so a JAX scene converts without importing JAX
-    here."""
+    here.  On the card unless `device` says otherwise."""
+    device = resolve_device(device)
     tables = {name: torch.as_tensor(np.array(np.asarray(getattr(ref, name)),
                                              dtype), device=device)
               for name, dtype in TABLES}
@@ -308,7 +310,9 @@ class SceneBuilder:
             self.sun_radiance = np.asarray(radiance, np.float32)
         self.sun_enabled = enabled
 
-    def build(self, device="cpu") -> Scene:
+    def build(self, device=None) -> Scene:
+        """Compile the scene onto `device`, the card when None."""
+        device = resolve_device(device)
         texreg = TextureRegistry()
         mats: List[Material] = []
         mat_index = {}

@@ -1,7 +1,8 @@
 """Build the CUDA kernels with nvcc at first use and bind them with ctypes.
 
-The sources under dsrt_tpu_torch/csrc/ (path_kernel.cu: dsrt_path_render
-and dsrt_closest_hit; sphere_kernel.cu: dsrt_sphere_render) compile, one
+The sources under dsrt_tpu_torch/csrc/ (path_kernel.cu: dsrt_path_render;
+sphere_kernel.cu: dsrt_sphere_render;
+traverse_kernel.cu: dsrt_traverse and dsrt_traverse_sun) compile, one
 nvcc process per source, all started together, into objects that one
 more nvcc call links into a shared library with a plain C interface (no
 PyTorch headers, so a build takes seconds):
@@ -41,14 +42,17 @@ SIGNATURES = {
     # rr_start; rr_max_p t_min t_max; end tri_rows n_textures pool_n
     # sun_on textured; stream
     "dsrt_path_render": [_P] * 13 + [_I] * 9 + [_F] * 3 + [_I] * 6 + [_P],
-    # bvh, thr, tri, ro, rd, t, u, v, tri_out; n end tri_rows;
-    # t_min t_max; stream
-    "dsrt_closest_hit": [_P] * 9 + [_I] * 3 + [_F] * 2 + [_P],
     # params, mat, pool, tex_w, tex_h, tex_off, accum, nrays; width height
     # cam_w cam_h spp salt seed max_depth rr_start n_mats n_sph n_med
     # n_lights env n_textures pool_n flags; rr_max_p t_min t_max env_rot
     # env_scale time0 dt; stream
     "dsrt_sphere_render": [_P] * 8 + [_I] * 17 + [_F] * 7 + [_P],
+    # bvh, thr, tri, ox oy oz dx dy dz, active, t, u, v, tri_out; n end
+    # tri_rows any_hit; t_min t_max; stream
+    "dsrt_traverse": [_P] * 14 + [_I] * 4 + [_F] * 2 + [_P],
+    # bvh, thr, tri, ox oy oz dx dy dz, active, sun (Ldir, bias), t, u, v,
+    # tri_out, blocked; n end tri_rows; t_min t_max; stream
+    "dsrt_traverse_sun": [_P] * 16 + [_I] * 3 + [_F] * 2 + [_P],
 }
 
 _lib = None

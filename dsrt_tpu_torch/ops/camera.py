@@ -17,8 +17,9 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from dsrt_tpu_torch.device import resolve_device
 from dsrt_tpu_torch.ops import rng as rngmod
-from dsrt_tpu_torch.ops.linalg import V3
+from dsrt_tpu_torch.ops.linalg import V3, const
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,7 +52,10 @@ class Camera:
 
 def make_camera(lookfrom, lookat, vup=(0.0, 1.0, 0.0), vfov: float = 40.0,
                 width: int = 800, height: int = 450, aperture: float = 0.0,
-                focus_dist: float | None = None, device="cpu") -> Camera:
+                focus_dist: float | None = None, device=None) -> Camera:
+    """The reference's float32 camera setup; on the card unless `device`
+    says otherwise."""
+    device = resolve_device(device)
     lookfrom = np.asarray(lookfrom, np.float32)
     lookat = np.asarray(lookat, np.float32)
     vup = np.asarray(vup, np.float32)
@@ -93,10 +97,11 @@ def point_camera_at(cam_pos, target=(0.0, 0.0, 0.0), **kw) -> Camera:
     return make_camera(cam_pos, target, vup=(0.0, 1.0, 0.0), **kw)
 
 
-def camera_from_reference(ref, device="cpu") -> Camera:
+def camera_from_reference(ref, device=None) -> Camera:
     """Camera from any object with the reference Camera's fields (values
     read with np.asarray, so a JAX camera converts without importing JAX
-    here)."""
+    here), on the card unless `device` says otherwise."""
+    device = resolve_device(device)
     def t(name):
         return torch.as_tensor(np.array(getattr(ref, name), np.float32),
                                device=device)
@@ -113,8 +118,8 @@ def generate_rays(cam: Camera, px, py, jx, jy) -> Tuple[V3, V3]:
     dev = jx.device
     # divide by device tensors: a CUDA division by a host scalar becomes a
     # reciprocal multiply, which differs in the last bit
-    wm1 = torch.tensor(cam.width - 1, dtype=torch.float32, device=dev)
-    hm1 = torch.tensor(cam.height - 1, dtype=torch.float32, device=dev)
+    wm1 = const(cam.width - 1, dev)
+    hm1 = const(cam.height - 1, dev)
     u = (px.to(torch.float32) + jx) / wm1
     v = (py.to(torch.float32) + jy) / hm1
     o = cam.origin.to(dev)

@@ -15,6 +15,7 @@ on the card and in the CUDA kernel.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -38,6 +39,20 @@ class V3(NamedTuple):
 
     def __neg__(self):
         return V3(-self.x, -self.y, -self.z)
+
+
+@functools.lru_cache(maxsize=None)
+def _const(value: float, dtype: torch.dtype, device: str) -> torch.Tensor:
+    return torch.tensor(value, dtype=dtype, device=device)
+
+
+def const(value, device, dtype=torch.float32) -> torch.Tensor:
+    """A cached 0-dim tensor holding `value` on `device`.  Making a CUDA
+    tensor from a host value waits for the stream to drain, so code that
+    runs once per wave takes its constants from here (never write to
+    them)."""
+    return _const(float(value) if dtype.is_floating_point else int(value),
+                  dtype, str(torch.device(device)))
 
 
 def sqrt(x: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,6 @@
-"""Wrappers of the CUDA kernels in csrc/path_kernel.cu, their plain
-PyTorch versions, and launch counters.
+"""Wrapper of the CUDA kernel in csrc/path_kernel.cu, its plain PyTorch
+version, its launch counter, and the argument checks the port's kernel
+wrappers share.
 
 Port of dsrt_tpu/ops/pallas_path.py for the triangle scope
 (`fused_supported`, :101-133, as `scope_error`) and the frame entry
@@ -14,12 +15,10 @@ from __future__ import annotations
 import torch
 
 from dsrt_tpu_torch.ops import build
-from dsrt_tpu_torch.ops.linalg import V3
 from dsrt_tpu_torch.ops.shade import (check_scope, render_samples,
                                       sun_direction)
-from dsrt_tpu_torch.ops.trace import lane_traverse
 
-LAUNCHES = {"dsrt_path_render": 0, "dsrt_closest_hit": 0}
+LAUNCHES = {"dsrt_path_render": 0}
 
 
 def reset_launches() -> None:
@@ -90,44 +89,6 @@ def _tables(scene):
         raise ValueError("bvh_pack has fewer rows than n_nodes")
     return (scene.bvh_pack.data_ptr(), scene.thr_pack.data_ptr(),
             scene.tri_pack.data_ptr())
-
-
-def closest_hit_plain(scene, ro: V3, rd: V3, t_min: float, t_max: float):
-    active = torch.ones(ro.x.shape, dtype=torch.bool, device=ro.x.device)
-    return lane_traverse(scene, ro, rd, t_min, t_max, active)
-
-
-def closest_hit(scene, ro: V3, rd: V3, t_min: float = 1e-3,
-                t_max: float = 1e9):
-    """(t, u, v, tri) of the closest hit per ray.  CPU: the plain walk;
-    CUDA: kernel `dsrt_closest_hit`, one thread per ray."""
-    if ro.x.device.type == "cpu":
-        return closest_hit_plain(scene, ro, rd, t_min, t_max)
-    _require_cuda(ro.x.device)
-    lib = build.load()
-    bvh, thr, tri = _tables(scene)
-    shape = ro.x.shape
-    o = torch.stack([c.reshape(-1) for c in ro], dim=1).contiguous()
-    d = torch.stack([c.reshape(-1) for c in rd], dim=1).contiguous()
-    n = o.shape[0]
-    if o.dtype != torch.float32 or d.dtype != torch.float32:
-        raise ValueError("rays must be float32")
-    if n >= 2 ** 31:
-        raise ValueError("too many rays for one launch")
-    t = torch.empty(n, dtype=torch.float32, device=o.device)
-    u = torch.empty_like(t)
-    v = torch.empty_like(t)
-    tri_out = torch.empty(n, dtype=torch.int32, device=o.device)
-    rc = lib.dsrt_closest_hit(
-        bvh, thr, tri, _ptr(o, torch.float32, "ro"),
-        _ptr(d, torch.float32, "rd"), t.data_ptr(), u.data_ptr(),
-        v.data_ptr(), tri_out.data_ptr(), n, int(scene.n_nodes),
-        int(scene.tri_pack.shape[0]), float(t_min), float(t_max),
-        torch.cuda.current_stream(o.device).cuda_stream)
-    build.check(lib, rc, "dsrt_closest_hit")
-    LAUNCHES["dsrt_closest_hit"] += 1
-    return (t.reshape(shape), u.reshape(shape), v.reshape(shape),
-            tri_out.to(torch.int64).reshape(shape))
 
 
 def path_render_plain(scene, cam, cfg, spp: int, salt: int = 0):

@@ -20,6 +20,14 @@
    pdf_brdf) or the BRDF branch (2 draws, pdf 0.5 pdf_brdf) — the
    reference's asymmetric mixture — and thr *= albedo * cos/pi / pdf.
 
+The scene queries walk the BVH by `walk`: "plain" runs `lane_traverse`
+on any device (the plain versions of the megakernels, which must never
+launch a kernel); "kernel" goes through the split pipeline's traversal
+kernels (ops/traverse.py, their plain versions on CPU tensors), as JAX's
+`_vmapped_scene_hit` does on the TPU, and with exec_opts.OPTS.fused_sun
+on a scene of triangles only one `traverse_with_sun` launch answers both
+queries of a wave.
+
 Every draw is masked to the lanes that draw in the scalar control flow,
 so each pixel's LCG stream is the CUDA kernels', draw for draw.  With
 the camera shutter open, every query of a path sees the sphere centres
@@ -31,15 +39,20 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from dsrt_tpu.models.materials import (DIELECTRIC, DIFFUSE_LIGHT, LAMBERTIAN,
-                                       METAL)
+from dsrt_tpu_torch.models.materials import (DIELECTRIC, DIFFUSE_LIGHT,
+                                             LAMBERTIAN, METAL)
+from dsrt_tpu_torch.exec_opts import OPTS
 from dsrt_tpu_torch.ops import rng as rngmod
 from dsrt_tpu_torch.ops import textures as texmod
 from dsrt_tpu_torch.ops.camera import camera_rays
-from dsrt_tpu_torch.ops.linalg import (V3, clamp01, cross, dot, f64_op, maxc,
-                                       normalize, reflect, refract, schlick,
-                                       sqrt, where as vwhere)
-from dsrt_tpu_torch.ops.trace import scene_hit
+from dsrt_tpu_torch.ops.linalg import (V3, clamp01, const, cross, dot,
+                                       f64_op, maxc, normalize, reflect,
+                                       refract, schlick, sqrt,
+                                       where as vwhere)
+from dsrt_tpu_torch.ops.trace import (scene_hit, scene_hit_flat,
+                                      scene_hit_flat_sun)
+
+WALKS = ("plain", "kernel")
 
 # scene limits of the sphere kernel (ops/sphere_kernel.py), which the
 # plain renderer shares
@@ -75,7 +88,7 @@ def sample_cosine_hemisphere(n: V3, state, mask):
     u, v, w = build_onb(n)
     world = normalize(u * local.x + v * local.y + w * local.z)
     cos_t = torch.clamp_min(dot(world, n), 0.0)
-    pi = torch.tensor(rngmod.PI_F, dtype=torch.float32, device=cos_t.device)
+    pi = const(rngmod.PI_F, cos_t.device)
     pdf = torch.where(cos_t > 0.0, cos_t / pi, torch.zeros_like(cos_t))
     return world, pdf, state
 
@@ -127,14 +140,17 @@ def sphere_light_from_uniforms(center: V3, radius, origin: V3, uz, uphi):
 
 
 def bounce_step(scene, cfg, L: V3, thr: V3, ro: V3, rd: V3, state, alive,
-                rr_mask, sdir: V3, time=None):
-    """One path segment for every lane.  Returns
+                rr_mask, sdir: V3, time=None, walk: str = "plain"):
+    """One path segment for every lane, the scene queried by `walk` (see
+    the module docstring).  Returns
     (L, thr, ro, rd, state, alive, rays traced by this segment)."""
+    if walk not in WALKS:
+        raise ValueError(f"walk must be one of {WALKS}, got {walk!r}")
     dev = ro.x.device
     t_min = float(cfg.hit_eps)
     t_max = float(cfg.hit_tmax)
     one = torch.ones_like(ro.x)
-    pi = torch.tensor(rngmod.PI_F, dtype=torch.float32, device=dev)
+    pi = const(rngmod.PI_F, dev)
 
     # 0. Russian roulette
     u_rr, state = rngmod.draw(state, rr_mask)
@@ -146,7 +162,15 @@ def bounce_step(scene, cfg, L: V3, thr: V3, ro: V3, rd: V3, state, alive,
 
     # 1. closest hit; a miss sees the sky
     nrays = alive.sum()
-    hit, state = scene_hit(scene, ro, rd, t_min, t_max, alive, state,
+    fused = (walk == "kernel" and OPTS.fused_sun and scene.sun_enabled
+             and scene.n_tris > 0 and scene.n_spheres == 0
+             and scene.n_media == 0)
+    query = scene_hit_flat if walk == "kernel" else scene_hit
+    if fused:
+        hit, sun_blocked = scene_hit_flat_sun(scene, ro, rd, t_min, t_max,
+                                              alive, sdir, cfg.shadow_bias)
+    else:
+        hit, state = query(scene, ro, rd, t_min, t_max, alive, state,
                            time=time)
     if scene.env_tex >= 0:
         miss = alive & ~hit.hit
@@ -221,14 +245,18 @@ def bounce_step(scene, cfg, L: V3, thr: V3, ro: V3, rd: V3, state, alive,
         pot = diff & (cos_sun > 0.0)
         nrays = nrays + pot.sum()
         bias = float(cfg.shadow_bias)
-        sh_o = V3(p.x + bias * n.x, p.y + bias * n.y, p.z + bias * n.z)
-        sh_d = V3(*(c.expand(p.x.shape) for c in sdir))
-        sh, state = scene_hit(scene, sh_o, sh_d, t_min, t_max, pot, state,
+        if fused:
+            blocked = sun_blocked
+        else:
+            sh_o = V3(p.x + bias * n.x, p.y + bias * n.y, p.z + bias * n.z)
+            sh_d = V3(*(c.expand(p.x.shape) for c in sdir))
+            sh, state = query(scene, sh_o, sh_d, t_min, t_max, pot, state,
                               any_hit=True, time=time)
+            blocked = sh.hit
         pdf_brdf_s = cos_sun / pi
         w_sun = pdf_brdf_s / (0.5 + 0.5 * pdf_brdf_s)
         sun_rad = V3(*(c.expand(p.x.shape) for c in scene.sun_radiance))
-        L = vwhere(pot & ~sh.hit, L + thr * albedo * sun_rad * w_sun, L)
+        L = vwhere(pot & ~blocked, L + thr * albedo * sun_rad * w_sun, L)
 
     # 6. next direction: cosine sampling, or the light/BRDF mixture
     if scene.n_lights == 0:
@@ -255,8 +283,7 @@ def bounce_step(scene, cfg, L: V3, thr: V3, ro: V3, rd: V3, state, alive,
         u2)
     cos_li = torch.clamp_min(dot(dir_l, n), 0.0)
     l_ok = (pdf_lc > 0.0) & (cos_li > 0.0)
-    n_l = torch.tensor(float(scene.n_lights), dtype=torch.float32,
-                       device=dev)
+    n_l = const(scene.n_lights, dev)
     pdf_val_l = 0.5 * (pdf_lc / n_l) + 0.5 * (cos_li / pi)
 
     dir_b, pdf_b, state = sample_cosine_hemisphere(n, state, brdf_m)
@@ -273,12 +300,14 @@ def bounce_step(scene, cfg, L: V3, thr: V3, ro: V3, rd: V3, state, alive,
     return L, thr, ro, rd, state, alive, nrays
 
 
-def trace_paths(scene, cfg, ro: V3, rd: V3, state, active0, time=None):
+def trace_paths(scene, cfg, ro: V3, rd: V3, state, active0, time=None,
+                walk: str = "plain", sdir: V3 | None = None):
     """Trace one sample per lane to completion.  Returns (clamp01(L),
     state, exact ray count: every closest-hit query plus every potential
     sun receiver).  `time` is the per-lane shutter time, or None."""
     check_scope(scene, cfg)
-    sdir = sun_direction(scene)
+    if sdir is None:
+        sdir = sun_direction(scene)
     zero = torch.zeros_like(ro.x)
     one = torch.ones_like(ro.x)
     L, thr = V3(zero, zero, zero), V3(one, one, one)
@@ -289,7 +318,8 @@ def trace_paths(scene, cfg, ro: V3, rd: V3, state, active0, time=None):
             break
         rr_mask = alive & (depth >= cfg.rr_start_depth)
         L, thr, ro, rd, state, alive, nr = bounce_step(
-            scene, cfg, L, thr, ro, rd, state, alive, rr_mask, sdir, time)
+            scene, cfg, L, thr, ro, rd, state, alive, rr_mask, sdir, time,
+            walk)
         nrays = nrays + nr
     return clamp01(L), state, nrays
 
@@ -302,13 +332,15 @@ def pixel_grid(width: int, height: int, device):
     return px.reshape(-1), py.reshape(-1)
 
 
-def render_samples(scene, cam, cfg, spp: int, salt: int = 0):
+def render_samples(scene, cam, cfg, spp: int, salt: int = 0,
+                   walk: str = "plain"):
     """The plain renderer: for each pixel, the sum over `spp` samples of
     clamp01(L), as (height, width, 3) float32 with row 0 = the camera's
     bottom row, and the exact ray count (int64 tensor).  Per sample: the
     diagonal jitter pair, the lens draws with an aperture, then one
     shutter-time draw when cfg.time1 > cfg.time0, held for the whole
-    path (dsrt_tpu/render.py `_render_lanes`)."""
+    path (dsrt_tpu/render.py `_render_lanes`).  `walk` as in
+    bounce_step."""
     dev = scene.device
     cam = cam.to(dev)
     px, py = pixel_grid(cfg.width, cfg.height, dev)
@@ -317,14 +349,15 @@ def render_samples(scene, cam, cfg, spp: int, salt: int = 0):
     zero = torch.zeros(px.shape, dtype=torch.float32, device=dev)
     acc = V3(zero, zero, zero)
     nrays = torch.zeros((), dtype=torch.int64, device=dev)
-    spp_t = torch.tensor(spp, dtype=torch.float32, device=dev)
+    spp_t = const(spp, dev)
+    sdir = sun_direction(scene)
     shutter = cfg.time1 > cfg.time0
     t0 = float(np.float32(cfg.time0))
     dt = float(np.float32(cfg.time1 - cfg.time0))
     for s in range(spp):
         jxu, state = rngmod.draw(state, valid)
         jyu, state = rngmod.draw(state, valid)
-        sf = torch.tensor(s, dtype=torch.float32, device=dev)
+        sf = const(s, dev)
         jx = (sf + jxu) / spp_t
         jy = (sf + jyu) / spp_t
         ro, rd, state = camera_rays(cam, px, py, jx, jy, state, valid,
@@ -333,7 +366,8 @@ def render_samples(scene, cam, cfg, spp: int, salt: int = 0):
         if shutter:
             ut, state = rngmod.draw(state, valid)
             time = t0 + ut * dt
-        L, state, nr = trace_paths(scene, cfg, ro, rd, state, valid, time)
+        L, state, nr = trace_paths(scene, cfg, ro, rd, state, valid, time,
+                                   walk, sdir)
         acc = acc + L
         nrays = nrays + nr
     img = torch.stack(list(acc), dim=-1).reshape(cfg.height, cfg.width, 3)

@@ -24,8 +24,9 @@ import math
 import numpy as np
 import torch
 
-from dsrt_tpu.models.materials import PTEX_CHECKER, PTEX_MARBLE, PTEX_NOISE
-from dsrt_tpu_torch.ops.linalg import V3, f64_op, sqrt
+from dsrt_tpu_torch.models.materials import (PTEX_CHECKER, PTEX_MARBLE,
+                                             PTEX_NOISE)
+from dsrt_tpu_torch.ops.linalg import V3, const, f64_op, sqrt
 from dsrt_tpu_torch.ops.rng import PI_F, TWO_PI_F
 
 MASK32 = 0xFFFFFFFF
@@ -40,8 +41,7 @@ HASH_MIX = 0x27D4EB2F
 
 def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
     """A float32 constant on `like`'s device (a divisor)."""
-    return torch.tensor(float(np.float32(x)), dtype=torch.float32,
-                        device=like.device)
+    return const(float(np.float32(x)), like.device)
 
 
 def sample_image(scene, tex_id: torch.Tensor, u: torch.Tensor,

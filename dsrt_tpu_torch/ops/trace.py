@@ -21,16 +21,23 @@ and before the nearest surface.
 
 This is the plain version: rays are vectorised, and each step works on
 the rays still walking (compacted), so it runs on CPU or CUDA tensors.
+`walk_counter` counts its node visits and triangle tests, the work from
+which PERF.md bounds the kernels.
+
+`scene_hit_flat` and `scene_hit_flat_sun` (JAX :686-725) are the split
+pipeline's queries: the triangle walk goes through the traversal kernels
+of ops/traverse.py (their plain versions for CPU tensors).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
 
 from dsrt_tpu_torch.ops import rng as rngmod
-from dsrt_tpu_torch.ops.linalg import V3, dot, f64_op, sqrt
+from dsrt_tpu_torch.ops.linalg import V3, const, dot, f64_op, sqrt
 
 
 class Hit(NamedTuple):
@@ -52,6 +59,22 @@ class Hit(NamedTuple):
     @property
     def normal(self) -> V3:
         return V3(self.nx, self.ny, self.nz)
+
+
+_COUNTS: dict | None = None
+
+
+@contextlib.contextmanager
+def walk_counter():
+    """Count the plain walk's node visits and triangle tests inside the
+    block: yields a dict {"visits", "tests"}; read each with int() (the
+    test count stays on the device until then)."""
+    global _COUNTS
+    prev, _COUNTS = _COUNTS, {"visits": 0, "tests": 0}
+    try:
+        yield _COUNTS
+    finally:
+        _COUNTS = prev
 
 
 def _leaf_scan(tp, o, d, t_min, closest, cnt, any_hit: bool):
@@ -148,6 +171,10 @@ def lane_traverse(scene, ro: V3, rd: V3, t_min: float, t_max: float,
         cnt = nf[:, 8].to(torch.int64)
         is_leaf = cnt > 0
         at_leaf = enter & is_leaf
+        if _COUNTS is not None:
+            _COUNTS["visits"] = _COUNTS["visits"] + idx.numel()
+            _COUNTS["tests"] = _COUNTS["tests"] + torch.where(
+                at_leaf, cnt, 0).sum()
 
         li = torch.nonzero(at_leaf).reshape(-1)
         if li.numel():
@@ -233,7 +260,7 @@ def sphere_pass(scene, ro: V3, rd: V3, t_min: float, hit: Hit, active,
     if scene.n_spheres == 0:
         return hit
     dev = ro.x.device
-    tmin = torch.tensor(t_min, dtype=torch.float32, device=dev)
+    tmin = const(t_min, dev)
     with_time = time is not None and scene.has_moving
     closest = hit.t
     a = dot(rd, rd)
@@ -346,3 +373,30 @@ def scene_hit(scene, ro: V3, rd: V3, t_min: float, t_max: float, active,
         hit = empty_hit(ro.x.shape, t_max, ro.x.device)
     hit = sphere_pass(scene, ro, rd, t_min, hit, active, time=time)
     return media_pass(scene, ro, rd, t_min, hit, active, state)
+
+
+def scene_hit_flat(scene, ro: V3, rd: V3, t_min: float, t_max: float,
+                   active, state, any_hit: bool = False, time=None):
+    """scene_hit with the triangle walk through ops/traverse.traverse (the
+    `dsrt_traverse` kernel on CUDA tensors), then the sphere and medium
+    passes and hit assembly; returns (Hit, state)."""
+    from dsrt_tpu_torch.ops.traverse import traverse
+    if scene.n_tris > 0:
+        t, u, v, tri = traverse(scene, ro, rd, active, t_min, t_max,
+                                any_hit=any_hit)
+        hit = hit_from_kernel(scene, ro, rd, t, u, v, tri, t_max)
+    else:
+        hit = empty_hit(ro.x.shape, t_max, ro.x.device)
+    hit = sphere_pass(scene, ro, rd, t_min, hit, active, time=time)
+    return media_pass(scene, ro, rd, t_min, hit, active, state)
+
+
+def scene_hit_flat_sun(scene, ro: V3, rd: V3, t_min: float, t_max: float,
+                       active, sun_ldir: V3, shadow_bias: float):
+    """Closest hit and the sun-shadow test in one traversal launch
+    (`dsrt_traverse_sun` on CUDA tensors) for scenes of triangles only;
+    returns (Hit, blocked), `blocked` valid on hit lanes."""
+    from dsrt_tpu_torch.ops.traverse import traverse_with_sun
+    t, u, v, tri, blocked = traverse_with_sun(
+        scene, ro, rd, active, t_min, t_max, sun_ldir, shadow_bias)
+    return hit_from_kernel(scene, ro, rd, t, u, v, tri, t_max), blocked

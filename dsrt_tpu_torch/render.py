@@ -1,10 +1,17 @@
-"""Frame rendering: the sample loop, the salted-chunk schedule, tonemap.
+"""Frame rendering: the sample loop, the salted-chunk schedule, the split
+pipeline's entry points, tonemap.
 
-Port of dsrt_tpu/render.py:82-153 (`render_frame`, the parity renderer),
-:185-247 (`render_frame_fused`, `fused_kind`) and :274-338 (the
-per-dispatch ray budget).
+Port of dsrt_tpu/render.py:51-78 (`lane_layout`, `lanes_to_image`),
+:82-153 (`render_frame`, the parity renderer), :159-182
+(`render_frame_wavefront`), :185-247 (`render_frame_fused`, `fused_kind`),
+:274-338 (the per-dispatch ray budget) and :435-483 (`render_frame_queue`).
 
-`render_frame` runs the plain PyTorch path tracer on the scene's device.
+`render_frame` runs the PyTorch path tracer on the scene's device, its
+walk through the traversal kernels on CUDA (ops/traverse.py).
+`render_frame_wavefront` and `render_frame_queue` are the split pipeline
+(ops/wavefront.py): eager shading waves over lane pools laid out as JAX
+lays them out, 1024-lane packets of 32x32-pixel tiles, so pool sizes,
+drain caps and compaction match JAX lane for lane.
 `render_frame_fused` runs one of the two megakernels on a CUDA scene (and
 its plain version on a CPU scene): scenes with triangles go to the path
 kernel (ops/path_kernel.py), sphere-only scenes to the sphere kernel
@@ -22,14 +29,45 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from dsrt_tpu.config import RenderConfig
+from dsrt_tpu_torch.config import RenderConfig
 from dsrt_tpu_torch.ops import path_kernel, sphere_kernel
 from dsrt_tpu_torch.ops.linalg import f64_op
 from dsrt_tpu_torch.ops.shade import render_samples
+from dsrt_tpu_torch.ops.wavefront import trace_accumulate, trace_queue
 
 # primary rays (width * height * spp) per kernel launch
 FUSED_DISPATCH_RAYS = 256 * 1024 * 1024
 SALT_MIX = 0x9E3779B9
+# a lane packet is a TILE_H x TILE_W pixel tile (JAX exec_opts.layout)
+TILE_H = 32
+TILE_W = 32
+PACKET = TILE_H * TILE_W
+# a queue band's (pixel, sample) ids plus its pool stay below this
+QUEUE_ID_LIMIT = 2 ** 31 - 1
+
+
+def lane_layout(width: int, height: int):
+    """Pixel-to-lane mapping: (K, 1024) int64 numpy arrays px, py and the
+    bool `valid`, each packet a 32x32 pixel tile; and (ty, tx), the tile
+    grid."""
+    tx = -(-width // TILE_W)
+    ty = -(-height // TILE_H)
+    ys, xs = np.mgrid[0:ty * TILE_H, 0:tx * TILE_W]
+
+    def to_lanes(a):
+        return (a.reshape(ty, TILE_H, tx, TILE_W).transpose(0, 2, 1, 3)
+                .reshape(ty * tx, PACKET))
+
+    px, py = to_lanes(xs).astype(np.int64), to_lanes(ys).astype(np.int64)
+    return px, py, (px < width) & (py < height), (ty, tx)
+
+
+def lanes_to_image(vals: torch.Tensor, ty: int, tx: int) -> torch.Tensor:
+    """(K, 1024, ...) lane tensor -> (Hp, Wp, ...) padded image (the
+    inverse of lane_layout)."""
+    rest = tuple(vals.shape[2:])
+    return (vals.reshape((ty, tx, TILE_H, TILE_W) + rest)
+            .transpose(1, 2).reshape((ty * TILE_H, tx * TILE_W) + rest))
 
 
 def tonemap(accum: torch.Tensor, cfg: RenderConfig, spp: int) -> np.ndarray:
@@ -48,12 +86,14 @@ def tonemap(accum: torch.Tensor, cfg: RenderConfig, spp: int) -> np.ndarray:
 
 def render_frame(scene, cam, cfg: RenderConfig | None = None,
                  with_count: bool = False):
-    """The plain renderer, one LCG stream per pixel; (H, W, 3) u8 (and
-    the exact ray count with `with_count`)."""
+    """The parity renderer, one LCG stream per pixel; (H, W, 3) u8 (and
+    the exact ray count with `with_count`).  Its walk goes through the
+    traversal kernels on a CUDA scene (their plain versions on a CPU
+    scene)."""
     if cfg is None:
         cfg = RenderConfig(width=cam.width, height=cam.height)
     spp = cfg.resolved_spp()
-    accum, nrays = render_samples(scene, cam, cfg, spp)
+    accum, nrays = render_samples(scene, cam, cfg, spp, walk="kernel")
     img = tonemap(accum, cfg, spp)
     return (img, int(nrays)) if with_count else img
 
@@ -118,3 +158,53 @@ def render_frame_fused(scene, cam, cfg: RenderConfig,
     accum, nrays = render_accum_fused(scene, cam, cfg, budget)
     img = tonemap(accum, cfg, cfg.resolved_spp())
     return (img, int(nrays)) if with_count else img
+
+
+def render_frame_wavefront(scene, cam, cfg: RenderConfig, spp_batch: int = 8,
+                           with_count: bool = False):
+    """The split pipeline with per-lane regeneration: `spp_batch` sample
+    slots per pixel (must divide spp), decorrelated streams; (H, W, 3) u8
+    (and the exact ray count with `with_count`)."""
+    spp = cfg.resolved_spp()
+    if spp % spp_batch != 0:
+        raise ValueError(f"spp_batch={spp_batch} must divide spp={spp}")
+    dev = scene.device
+    px, py, valid, (ty, tx) = lane_layout(cfg.width, cfg.height)
+    k = px.shape[0]
+
+    def tiled(a):
+        return torch.as_tensor(np.tile(a, (spp_batch, 1)), device=dev)
+
+    slot = torch.as_tensor(np.repeat(np.arange(spp_batch), k)[:, None]
+                           .repeat(PACKET, axis=1), device=dev)
+    accum, nrays = trace_accumulate(scene, cfg, cam, tiled(px), tiled(py),
+                                    tiled(valid), slot, spp // spp_batch)
+    folded = torch.stack([c.reshape(spp_batch, k, PACKET).sum(dim=0)
+                          for c in accum], dim=-1)
+    img = tonemap(lanes_to_image(folded, ty, tx)[:cfg.height, :cfg.width],
+                  cfg, spp)
+    return (img, int(nrays)) if with_count else img
+
+
+def render_frame_queue(scene, cam, cfg: RenderConfig, pool_packets: int = 0):
+    """The split pipeline as one global work queue over every (pixel,
+    sample) unit; `pool_packets` = lanes in flight / 1024 (0: one
+    frame's packets).  Frames whose unit ids would overflow int32 render
+    in horizontal bands through the same queue, each with its own id
+    space (seeds use frame coordinates, so the image is the same)."""
+    px, _, _, _ = lane_layout(cfg.width, cfg.height)
+    k = pool_packets or px.shape[0]
+    spp = cfg.resolved_spp()
+    band_h = cfg.height
+    while cfg.width * band_h * spp + k * PACKET >= QUEUE_ID_LIMIT:
+        band_h = (band_h + 1) // 2
+    bands = []
+    y0 = 0
+    while y0 < cfg.height:
+        bh = min(band_h, cfg.height - y0)
+        accum, _ = trace_queue(scene, cfg, cam, cfg.width, bh, (k, PACKET),
+                               y0=y0)
+        bands.append(tonemap(accum.reshape(bh, cfg.width, 3), cfg, spp))
+        y0 += bh
+    # each band is flipped (row 0 = its top): the frame's top band is last
+    return np.concatenate(bands[::-1], axis=0)

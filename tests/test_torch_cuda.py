@@ -10,11 +10,11 @@ import numpy as np
 import pytest
 import torch
 
-from dsrt_tpu.config import RenderConfig
+from dsrt_tpu_torch.config import RenderConfig
 from dsrt_tpu_torch.models.mesh_gen import (iss_standin_scene,
                                             write_panel_texture)
 from dsrt_tpu_torch.models import presets
-from dsrt_tpu_torch.ops import path_kernel, sphere_kernel
+from dsrt_tpu_torch.ops import path_kernel, sphere_kernel, traverse
 from dsrt_tpu_torch.ops.camera import make_camera, point_camera_at
 from dsrt_tpu_torch.ops.linalg import V3
 from dsrt_tpu_torch.ops.trace import lane_traverse
@@ -34,7 +34,7 @@ def cuda():
 def scene_cpu(tmp_path):
     tex = str(tmp_path / "panel.png")
     write_panel_texture(tex)
-    return iss_standin_scene(detail=3, tex_path=tex)
+    return iss_standin_scene(detail=3, tex_path=tex, device="cpu")
 
 
 def _rays(n, device, seed=3):
@@ -50,12 +50,12 @@ def _rays(n, device, seed=3):
 def test_closest_hit_kernel_matches_plain_walk(cuda, scene_cpu):
     scene = scene_cpu.to(cuda)
     ro, rd = _rays(1 << 16, cuda)
-    before = path_kernel.LAUNCHES["dsrt_closest_hit"]
-    got = path_kernel.closest_hit(scene, ro, rd)
+    act = torch.ones(1 << 16, dtype=torch.bool, device=cuda)
+    before = traverse.LAUNCHES["dsrt_traverse"]
+    got = traverse.traverse(scene, ro, rd, act, 1e-3, 1e9)
     torch.cuda.synchronize()
-    assert path_kernel.LAUNCHES["dsrt_closest_hit"] == before + 1
-    want = lane_traverse(scene, ro, rd, 1e-3, 1e9,
-                         torch.ones(1 << 16, dtype=torch.bool, device=cuda))
+    assert traverse.LAUNCHES["dsrt_traverse"] == before + 1
+    want = lane_traverse(scene, ro, rd, 1e-3, 1e9, act)
     assert (want[3] >= 0).sum() > 1000
     for g, w in zip(got, want):
         assert torch.equal(g, w)
@@ -67,7 +67,7 @@ def test_path_kernel_matches_plain_renderer(cuda, scene_cpu):
     ulp of a float rounding boundary."""
     cfg = RenderConfig(width=48, height=32, spp=2, max_depth=6)
     cam = point_camera_at((-20.0, -30.0, -95.0), vfov=cfg.vfov, width=48,
-                          height=32)
+                          height=32, device="cpu")
     before = path_kernel.LAUNCHES["dsrt_path_render"]
     acc, n = path_kernel.path_render(scene_cpu.to(cuda), cam.to(cuda), cfg)
     torch.cuda.synchronize()
@@ -84,25 +84,29 @@ def test_path_kernel_matches_plain_renderer(cuda, scene_cpu):
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda, scene_cpu):
     scene = scene_cpu.to(cuda)
     ro, rd = _rays(64, cuda)
+    act = torch.ones(64, dtype=torch.bool, device=cuda)
     with pytest.raises(ValueError):
-        path_kernel.closest_hit(scene, V3(*(c.double() for c in ro)), rd)
+        traverse.traverse(scene, V3(*(c.double() for c in ro)), rd, act,
+                          1e-3, 1e9)
     with pytest.raises(ValueError):
-        path_kernel.closest_hit(scene_cpu, ro, rd)
+        traverse.traverse(scene_cpu, ro, rd, act, 1e-3, 1e9)
+    with pytest.raises(ValueError):
+        traverse.traverse(scene, ro, rd, act.float(), 1e-3, 1e9)
 
 
 SPHERE_CASES = {
-    "rtiow_smoke_scene": (lambda: presets.rtiow_smoke_scene(), {},
+    "rtiow_smoke_scene": (lambda: presets.rtiow_smoke_scene(device="cpu"), {},
                           (0.0, 0.6, 2.0), 50),
-    "sphere_light_scene": (lambda: presets.sphere_light_scene(), {},
-                           (0.0, 0.6, 2.0), 50),
-    "volumetric_scene": (lambda: presets.volumetric_scene(), {},
+    "sphere_light_scene": (lambda: presets.sphere_light_scene(device="cpu"),
+                           {}, (0.0, 0.6, 2.0), 50),
+    "volumetric_scene": (lambda: presets.volumetric_scene(device="cpu"), {},
                          (0.0, 0.6, 2.0), 50),
-    "dof_motion": (lambda: presets.dof_motion_scene(sun=True),
+    "dof_motion": (lambda: presets.dof_motion_scene(sun=True, device="cpu"),
                    dict(aperture=0.2, time0=0.2, time1=0.8),
                    (0.0, 0.4, 1.2), 60),
     "env": (lambda: presets.env_sphere_scene(
         np.random.default_rng(5).uniform(0.0, 2.0, (8, 16, 3)).astype(
-            np.float32), rotation_deg=30.0, scale=1.5), {},
+            np.float32), rotation_deg=30.0, scale=1.5, device="cpu"), {},
             (0.0, 0.6, 2.0), 50),
 }
 
@@ -115,7 +119,8 @@ def test_sphere_kernel_matches_plain_version(cuda, name):
     make, extra, look, vfov = SPHERE_CASES[name]
     cfg = RenderConfig(width=64, height=36, spp=4, max_depth=12, **extra)
     cam = make_camera(look, (0.0, 0.0, -1.0), vfov=vfov, width=64,
-                      height=36, aperture=extra.get("aperture", 0.0))
+                      height=36, aperture=extra.get("aperture", 0.0),
+                      device="cpu")
     scene_cpu = make()
     before = sphere_kernel.LAUNCHES["dsrt_sphere_render"]
     acc, n = sphere_kernel.sphere_render(scene_cpu.to(cuda), cam.to(cuda),
@@ -141,3 +146,63 @@ def test_sphere_frames_go_through_the_sphere_kernel(cuda):
     bad = dataclasses.replace(scene, mat_pack=scene.mat_pack.double())
     with pytest.raises(ValueError):
         sphere_kernel.sphere_render(bad, cam, cfg)
+
+
+@pytest.mark.parametrize("kind", ["closest", "any", "sun"])
+def test_traverse_kernels_match_plain_versions(cuda, scene_cpu, kind):
+    """dsrt_traverse / dsrt_traverse_sun against their plain versions on
+    the card: exact (t, u, v, tri) on closest hits, equal hit masks on
+    any-hit queries, equal `blocked` on hit lanes."""
+    from dsrt_tpu_torch.ops import traverse as tv
+    from dsrt_tpu_torch.ops.shade import sun_direction
+    scene = scene_cpu.to(cuda)
+    ro, rd = _rays(1 << 16, cuda)
+    act = torch.from_numpy(np.random.default_rng(4).random(1 << 16) > 0.1
+                           ).to(cuda)
+    name = "dsrt_traverse_sun" if kind == "sun" else "dsrt_traverse"
+    before = tv.LAUNCHES[name]
+    if kind == "sun":
+        sdir = sun_direction(scene)
+        got = tv.traverse_with_sun(scene, ro, rd, act, 1e-3, 1e9, sdir, 1e-3)
+        want = tv.traverse_with_sun_plain(scene, ro, rd, act, 1e-3, 1e9, sdir,
+                                          1e-3)
+    else:
+        got = tv.traverse(scene, ro, rd, act, 1e-3, 1e9,
+                          any_hit=kind == "any")
+        want = tv.traverse_plain(scene, ro, rd, act, 1e-3, 1e9,
+                                 any_hit=kind == "any")
+    torch.cuda.synchronize()
+    assert tv.LAUNCHES[name] == before + 1
+    hits = want[3] >= 0
+    assert hits.sum() > 1000 and not hits[~act].any()
+    assert torch.equal(got[3] >= 0, hits)
+    if kind != "any":
+        for g, w in zip(got[:4], want[:4]):
+            assert torch.equal(g, w)
+    if kind == "sun":
+        assert torch.equal(got[4][hits], want[4][hits])
+        assert 0 < want[4][hits].sum() < hits.sum()
+
+
+@pytest.mark.parametrize("fused_sun", [False, True], ids=["two", "fused"])
+def test_split_frames_go_through_the_traverse_kernels(cuda, scene_cpu,
+                                                      monkeypatch, fused_sun):
+    """The wavefront loop on the card against the same loop on the CPU
+    (the plain walk): identical accumulators and ray counts."""
+    from dsrt_tpu_torch.exec_opts import OPTS
+    from dsrt_tpu_torch.ops import traverse as tv
+    from dsrt_tpu_torch.render import render_frame_wavefront
+    monkeypatch.setattr(OPTS, "fused_sun", fused_sun)
+    cfg = RenderConfig(width=64, height=36, spp=4, max_depth=12)
+    cam = point_camera_at((-20.0, -30.0, -95.0), vfov=cfg.vfov, width=64,
+                          height=36, device="cpu")
+    tv.reset_launches()
+    got, n = render_frame_wavefront(scene_cpu.to(cuda), cam.to(cuda), cfg,
+                                    spp_batch=2, with_count=True)
+    launched = dict(tv.LAUNCHES)
+    want, n_cpu = render_frame_wavefront(scene_cpu, cam, cfg, spp_batch=2,
+                                         with_count=True)
+    assert launched["dsrt_traverse_sun" if fused_sun else "dsrt_traverse"] > 0
+    assert launched["dsrt_traverse" if fused_sun else "dsrt_traverse_sun"] == 0
+    np.testing.assert_array_equal(got, want)
+    assert n == n_cpu

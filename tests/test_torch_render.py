@@ -84,8 +84,8 @@ def test_textured_standin_matches_reference(lane_forced, tmp_path):
     assert js.has_image_tex and js.n_tris > jtrace.LANE_SWITCH_TRIS
     jc = jpoint(SUNLIT, vfov=CFG.vfov, width=CFG.width, height=CFG.height)
     want = jrender(js, jc, CFG)
-    got, nrays = render_frame(scene_from_reference(js),
-                              camera_from_reference(jc), CFG,
+    got, nrays = render_frame(scene_from_reference(js, device="cpu"),
+                              camera_from_reference(jc, device="cpu"), CFG,
                               with_count=True)
     assert (got > 0).mean() > 0.3, "sunlit frame expected"
     assert_images_match(got, want)
@@ -99,8 +99,8 @@ def test_mixed_materials_match_reference(lane_forced):
     jc = jmake_camera((0.0, 0.8, 2.5), (0.0, 0.0, -3.0), vfov=55.0,
                       width=CFG.width, height=CFG.height)
     want = jrender(js, jc, CFG)
-    got = render_frame(scene_from_reference(js), camera_from_reference(jc),
-                       CFG)
+    got = render_frame(scene_from_reference(js, device="cpu"),
+                       camera_from_reference(jc, device="cpu"), CFG)
     assert (got > 0).mean() > 0.3
     assert_images_match(got, want)
 
@@ -110,7 +110,8 @@ def test_fused_entry_on_cpu_is_the_plain_renderer():
     jc = jmake_camera((0.0, 0.8, 2.5), (0.0, 0.0, -3.0), vfov=55.0,
                       width=24, height=16)
     cfg = RenderConfig(width=24, height=16, spp=3, max_depth=5)
-    s, c = scene_from_reference(js), camera_from_reference(jc)
+    s = scene_from_reference(js, device="cpu")
+    c = camera_from_reference(jc, device="cpu")
     np.testing.assert_array_equal(render_frame_fused(s, c, cfg),
                                   render_frame(s, c, cfg))
 
@@ -124,7 +125,8 @@ def test_over_budget_frames_render_in_salted_chunks():
     jc = jmake_camera((0.0, 0.8, 2.5), (0.0, 0.0, -3.0), vfov=55.0,
                       width=16, height=12)
     cfg = RenderConfig(width=16, height=12, spp=5, max_depth=4)
-    s, c = scene_from_reference(js), camera_from_reference(jc)
+    s = scene_from_reference(js, device="cpu")
+    c = camera_from_reference(jc, device="cpu")
     budget = 16 * 12 * 2
     assert fused_chunk_spp(cfg, budget) == 2
     acc, n = render_accum_fused(s, c, cfg, budget)
@@ -147,6 +149,6 @@ def test_matches_fused_pallas_kernel_in_interpret_mode():
     jc = jpoint((20.0, 30.0, 95.0), vfov=cfg.vfov, width=32, height=16)
     with pltpu.force_tpu_interpret_mode():
         want = jfused(js, jc, cfg)
-    got = render_frame(scene_from_reference(js), camera_from_reference(jc),
-                       cfg)
+    got = render_frame(scene_from_reference(js, device="cpu"),
+                       camera_from_reference(jc, device="cpu"), cfg)
     assert_images_match(got, want)

@@ -118,7 +118,8 @@ def test_generate_rays_bit_identical(dims):
     jy = rng.random(N).astype(np.float32)
     pose = ((40.0, 60.0, 190.0), (0.0, 0.0, 0.0))
     jc = jcam.point_camera_at(pose[0], pose[1], vfov=40.0, width=w, height=h)
-    tc = tcam.point_camera_at(pose[0], pose[1], vfov=40.0, width=w, height=h)
+    tc = tcam.point_camera_at(pose[0], pose[1], vfov=40.0, width=w, height=h,
+                              device="cpu")
     for f in ("origin", "lower_left", "horizontal", "vertical", "u", "v",
               "w"):
         np.testing.assert_array_equal(getattr(tc, f).numpy(),
@@ -136,7 +137,7 @@ def test_generate_rays_bit_identical(dims):
 def test_camera_from_reference_and_aperture():
     jc = jcam.point_camera_at((1.0, 2.0, 30.0), vfov=50.0, width=32,
                               height=24)
-    tc = tcam.camera_from_reference(jc)
+    tc = tcam.camera_from_reference(jc, device="cpu")
     np.testing.assert_array_equal(tc.lower_left.numpy(),
                                   np.asarray(jc.lower_left))
     assert (tc.width, tc.height) == (32, 24)
@@ -144,8 +145,9 @@ def test_camera_from_reference_and_aperture():
     jl = jcam.make_camera((0, 0.4, 1.2), (0, 0, -1), vfov=60, width=32,
                           height=24, aperture=0.25, focus_dist=1.7)
     tl = tcam.make_camera((0, 0.4, 1.2), (0, 0, -1), vfov=60, width=32,
-                          height=24, aperture=0.25, focus_dist=1.7)
-    for cam in (tl, tcam.camera_from_reference(jl)):
+                          height=24, aperture=0.25, focus_dist=1.7,
+                          device="cpu")
+    for cam in (tl, tcam.camera_from_reference(jl, device="cpu")):
         assert float(cam.lens_radius) == float(np.asarray(jl.lens_radius))
         for f in ("lower_left", "horizontal", "vertical", "u", "v"):
             np.testing.assert_array_equal(getattr(cam, f).numpy(),

@@ -44,8 +44,8 @@ def test_matches_jax_sphere_kernel_in_interpret_mode(name):
         want, want_rays = jrender_fused(getattr(jpresets, name)(),
                                         jmake_camera(*LOOK, **kw), CFG,
                                         with_count=True)
-    got, rays = render_frame_fused(getattr(tpresets, name)(),
-                                   make_camera(*LOOK, **kw), CFG,
+    got, rays = render_frame_fused(getattr(tpresets, name)(device="cpu"),
+                                   make_camera(*LOOK, **kw, device="cpu"), CFG,
                                    with_count=True)
     assert (got > 0).mean() > 0.2
     if name == "rtiow_smoke_scene":
@@ -59,9 +59,10 @@ def test_parameter_vector_layout():
     """sph stride 8 (c0, r, mat, c2), med stride 15, lit stride 4, the
     19-float camera, then Ldir normalised by a reciprocal multiply,
     radiance and shadow bias (pallas_sphere.trace_fused_spheres)."""
-    s = tpresets.volumetric_scene()
+    s = tpresets.volumetric_scene(device="cpu")
     cfg = dataclasses.replace(CFG, aperture=0.3)
-    cam = make_camera(*LOOK, vfov=50, width=32, height=16, aperture=0.3)
+    cam = make_camera(*LOOK, vfov=50, width=32, height=16, aperture=0.3,
+                      device="cpu")
     vec = sk.pack_params(s, cam, cfg)
     assert vec.numel() == sk.PARAM_LEN == 247 and vec.dtype == torch.float32
     ns = s.n_spheres
@@ -91,10 +92,12 @@ def test_parameter_vector_layout():
 def test_launch_flags_follow_the_reference():
     """The shutter draw happens whenever time1 > time0, moving spheres or
     not; the centre lerp only with moving spheres."""
-    cam = make_camera(*LOOK, vfov=50, width=32, height=16)
+    cam = make_camera(*LOOK, vfov=50, width=32, height=16,
+                      device="cpu")
     flag = lambda s, cfg: sk.launch_scalars(s, cam, cfg, 2)[0][-1]
-    rt, vol, dof = (tpresets.rtiow_smoke_scene(), tpresets.volumetric_scene(),
-                    tpresets.dof_motion_scene(sun=True))
+    rt, vol, dof = (tpresets.rtiow_smoke_scene(device="cpu"),
+                    tpresets.volumetric_scene(device="cpu"),
+                    tpresets.dof_motion_scene(sun=True, device="cpu"))
     shutter = dataclasses.replace(CFG, time0=0.2, time1=0.8)
     assert flag(rt, CFG) == sk.SUN_ON
     assert flag(rt, shutter) == sk.SUN_ON | sk.SHUTTER
@@ -111,24 +114,26 @@ def _mixed_scene():
     b.add_sphere((0.0, 0.0, -1.0), 0.5, Material.lambertian())
     b.add_triangle((-1.0, -1.0, -2.0), (1.0, -1.0, -2.0), (0.0, 1.0, -2.0),
                    Material.lambertian())
-    return b.build()
+    return b.build(device="cpu")
 
 
 def test_frames_route_to_the_kernel_that_covers_them():
-    rt = tpresets.rtiow_smoke_scene()
+    rt = tpresets.rtiow_smoke_scene(device="cpu")
     assert fused_kind(rt, CFG) == "sphere"
-    assert fused_kind(tpresets.single_triangle_scene(), CFG) == "tri"
+    tri = tpresets.single_triangle_scene(device="cpu")
+    assert fused_kind(tri, CFG) == "tri"
     # spheres among triangles: neither kernel yet
     mixed = _mixed_scene()
     assert fused_kind(mixed, CFG) is None
-    cam = make_camera(*LOOK, vfov=50, width=32, height=16)
+    cam = make_camera(*LOOK, vfov=50, width=32, height=16,
+                      device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         render_frame_fused(mixed, cam, CFG)
     # over the kernel's sphere limit
     b = SceneBuilder(seed=1337)
     for i in range(sk.MAX_SPH + 1):
         b.add_sphere((0.1 * i, 0.0, -1.0), 0.05, Material.lambertian())
-    many = b.build()
+    many = b.build(device="cpu")
     assert not sk.sphere_fused_supported(many, CFG)
     with pytest.raises(NotImplementedError, match="16 spheres"):
         sk.sphere_render(many, cam, CFG)
@@ -138,9 +143,10 @@ def test_frames_route_to_the_kernel_that_covers_them():
 
 
 def test_sphere_frames_render_in_salted_chunks():
-    s = tpresets.volumetric_scene()
+    s = tpresets.volumetric_scene(device="cpu")
     cfg = RenderConfig(width=16, height=12, spp=5, max_depth=4)
-    cam = make_camera(*LOOK, vfov=50, width=16, height=12)
+    cam = make_camera(*LOOK, vfov=50, width=16, height=12,
+                      device="cpu")
     budget = 16 * 12 * 2
     assert fused_chunk_spp(cfg, budget) == 2
     acc, n = render_accum_fused(s, cam, cfg, budget)
@@ -159,12 +165,14 @@ def test_scene_and_camera_from_reference_render_like_the_ports_own():
     look = ((0.0, 0.4, 1.2), (0.0, 0.0, -1.0))
     from test_fused_spheres import _dof_motion_scene
     for js, ts in ((_dof_motion_scene(sun=True),
-                    tpresets.dof_motion_scene(sun=True)),
+                    tpresets.dof_motion_scene(sun=True, device="cpu")),
                    (jpresets.volumetric_scene(),
-                    tpresets.volumetric_scene())):
+                    tpresets.volumetric_scene(device="cpu"))):
         carried = render_frame_fused(
-            scene_from_reference(js),
-            camera_from_reference(jmake_camera(*look, **kw)), cfg)
-        own = render_frame_fused(ts, make_camera(*look, **kw), cfg)
+            scene_from_reference(js, device="cpu"),
+            camera_from_reference(jmake_camera(*look, **kw), device="cpu"),
+            cfg)
+        own = render_frame_fused(ts, make_camera(*look, **kw, device="cpu"),
+                                 cfg)
         assert (own > 0).mean() > 0.05
         np.testing.assert_array_equal(carried, own)

@@ -75,8 +75,8 @@ FIELDS = ("hit", "t", "nx", "ny", "nz", "front", "mat", "medium")
 def test_sphere_pass_matches_reference_exactly(moving):
     js = (jdof_motion_scene(sun=True) if moving
           else jpresets.rtiow_smoke_scene())
-    ts = (tpresets.dof_motion_scene(sun=True) if moving
-          else tpresets.rtiow_smoke_scene())
+    ts = (tpresets.dof_motion_scene(sun=True, device="cpu") if moving
+          else tpresets.rtiow_smoke_scene(device="cpu"))
     assert ts.has_moving == moving
     o, d, act = rays_at(ts.sph_center.numpy()[1:], 11)
     tm = np.random.default_rng(12).uniform(0.2, 0.8, N).astype(np.float32)
@@ -94,7 +94,7 @@ def test_sphere_pass_matches_reference_exactly(moving):
                                       np.asarray(getattr(want, f)), f)
 
 
-def _media_scene(builder_cls):
+def _media_scene(builder_cls, **build_kw):
     """A sphere medium and a box medium around two surfaces."""
     b = builder_cls(sun_enabled=True, seed=1337)
     b.add_sphere((0.0, -100.5, -1.0), 100.0, Material.lambertian())
@@ -103,11 +103,12 @@ def _media_scene(builder_cls):
                                  albedo=(0.8, 0.85, 0.9))
     b.add_constant_medium_box((-0.2, -0.5, -2.0), (1.2, 0.8, -0.5),
                               density=0.7, albedo=(0.5, 0.6, 0.7))
-    return b.build()
+    return b.build(**build_kw)
 
 
 def test_media_pass_draws_and_hits_match_reference():
-    js, ts = _media_scene(JSceneBuilder), _media_scene(SceneBuilder)
+    js = _media_scene(JSceneBuilder)
+    ts = _media_scene(SceneBuilder, device="cpu")
     assert ts.n_media == 2
     o, d, act = rays_at(np.array([[-0.7, 0.1, -1.0], [0.5, 0.15, -1.25]]),
                         21)
@@ -145,7 +146,7 @@ def test_thin_lens_raygen_matches_reference_exactly():
     mask = rng.random(N) < 0.7
     kw = dict(vfov=60, width=w, height=h, aperture=0.2)
     jc = jcam.make_camera((0, 0.4, 1.2), (0, 0, -1), **kw)
-    tc = tcam.make_camera((0, 0.4, 1.2), (0, 0, -1), **kw)
+    tc = tcam.make_camera((0, 0.4, 1.2), (0, 0, -1), **kw, device="cpu")
     with jax.disable_jit():
         jo, jd, jst = jcam.generate_rays_dof(
             jc, jnp.asarray(px), jnp.asarray(py), jnp.asarray(jx),

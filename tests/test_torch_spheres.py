@@ -41,11 +41,12 @@ RAYS_32x16 = {"rtiow_smoke_scene": 2464, "volumetric_scene": 2102}
 def test_sphere_preset_matches_parity_renderer(name):
     cfg = PRESETS[name]
     kw = dict(vfov=50, width=cfg.width, height=cfg.height)
-    ts = getattr(tpresets, name)()
+    ts = getattr(tpresets, name)(device="cpu")
     assert fused_kind(ts, cfg) == "sphere"
     before = dict(sphere_kernel.LAUNCHES)
-    got, nrays = render_frame_fused(ts, make_camera(*LOOK, **kw), cfg,
-                                    with_count=True)
+    got, nrays = render_frame_fused(ts, make_camera(*LOOK, **kw,
+                                                    device="cpu"),
+                                    cfg, with_count=True)
     assert sphere_kernel.LAUNCHES == before     # CPU: the plain version
     want = jrender(getattr(jpresets, name)(), jmake_camera(*LOOK, **kw),
                    cfg)
@@ -67,15 +68,16 @@ def test_depth_of_field_and_motion_blur_match_parity_renderer():
                        aperture=0.2, time0=0.2, time1=0.8)
     kw = dict(vfov=60, width=cfg.width, height=cfg.height, aperture=0.2)
     look = ((0.0, 0.4, 1.2), (0.0, 0.0, -1.0))
-    got = render_frame_fused(tpresets.dof_motion_scene(sun=True),
-                             make_camera(*look, **kw), cfg)
+    got = render_frame_fused(tpresets.dof_motion_scene(sun=True, device="cpu"),
+                             make_camera(*look, **kw, device="cpu"), cfg)
     want = jrender(_dof_motion_scene(sun=True), jmake_camera(*look, **kw),
                    cfg)
     assert (got > 0).mean() > 0.05
     assert_images_match(got, want)
     # the shutter moves the picture: the same frame with it closed differs
     closed = render_frame_fused(
-        tpresets.dof_motion_scene(sun=True), make_camera(*look, **kw),
+        tpresets.dof_motion_scene(sun=True, device="cpu"),
+        make_camera(*look, **kw, device="cpu"),
         RenderConfig(width=48, height=24, spp=2, max_depth=8, aperture=0.2))
     assert (closed != got).any()
 
@@ -87,8 +89,8 @@ def test_environment_sky_frame_matches_parity_renderer():
     look = ((0.0, 0.2, 0.5), (0.0, 0.0, -2.0))
     got = render_frame_fused(
         tpresets.env_sphere_scene(_env_array(), rotation_deg=30.0,
-                                  scale=1.5),
-        make_camera(*look, **kw), cfg)
+                                  scale=1.5, device="cpu"),
+        make_camera(*look, **kw, device="cpu"), cfg)
     want = jrender(_scene(rotation_deg=30.0, scale=1.5),
                    jmake_camera(*look, **kw), cfg)
     assert (got > 0).mean() > 0.9, "sky expected around the spheres"

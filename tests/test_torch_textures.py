@@ -89,7 +89,7 @@ def test_perlin_noise_and_turbulence_match_reference(span):
     same(ttex.perlin_turb(tv(p)), want_t)
 
 
-def _ptex_scene(builder_cls):
+def _ptex_scene(builder_cls, **build_kw):
     """All three procedural kinds and a solid colour."""
     b = builder_cls(sun_enabled=False, seed=1337)
     b.add_sphere((0.0, -100.5, -1.0), 100.0,
@@ -98,11 +98,12 @@ def _ptex_scene(builder_cls):
     b.add_sphere((0.7, 0.0, -1.1), 0.5, Material.marble(scale=2.0))
     b.add_sphere((-0.7, 0.0, -1.1), 0.5, Material.noise(scale=3.0))
     b.add_sphere((0.0, 1.0, -1.0), 0.3, Material.lambertian((0.5, 0.4, 0.3)))
-    return b.build()
+    return b.build(**build_kw)
 
 
 def test_procedural_albedo_matches_reference():
-    js, ts = _ptex_scene(JSceneBuilder), _ptex_scene(SceneBuilder)
+    js = _ptex_scene(JSceneBuilder)
+    ts = _ptex_scene(SceneBuilder, device="cpu")
     n = 6000
     mat = RNG.integers(0, ts.mat_pack.shape[0], n).astype(np.int32)
     base = RNG.uniform(0.0, 1.0, (3, n)).astype(np.float32)
@@ -127,7 +128,8 @@ def test_procedural_albedo_matches_reference():
 
 
 def test_volumetric_preset_procedural_albedo_matches_reference():
-    js, ts = jpresets.volumetric_scene(), tpresets.volumetric_scene()
+    js = jpresets.volumetric_scene()
+    ts = tpresets.volumetric_scene(device="cpu")
     n = 3000
     mat = RNG.integers(0, ts.mat_pack.shape[0], n).astype(np.int32)
     base = RNG.uniform(0.0, 1.0, (3, n)).astype(np.float32)
@@ -151,7 +153,7 @@ def test_environment_sky_matches_reference(rotation_deg, scale):
     b.set_environment(env, rotation_deg=rotation_deg, scale=scale)
     js = b.build()
     ts = tpresets.env_sphere_scene(env, rotation_deg=rotation_deg,
-                                   scale=scale)
+                                   scale=scale, device="cpu")
     # directions of any length, the poles and the seam included
     d = RNG.normal(size=(3, 20000)).astype(np.float32)
     d *= RNG.uniform(0.1, 10.0, 20000).astype(np.float32)

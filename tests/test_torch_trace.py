@@ -18,7 +18,7 @@ from dsrt_tpu.models.mesh_gen import iss_standin_scene as jscene
 from dsrt_tpu.models.presets import random_tri_soup_scene as jsoup
 from dsrt_tpu.ops.linalg import V3 as JV3
 from dsrt_tpu_torch.models.scene import scene_from_reference
-from dsrt_tpu_torch.ops import path_kernel
+from dsrt_tpu_torch.ops import traverse
 from dsrt_tpu_torch.ops.linalg import V3
 from dsrt_tpu_torch.ops.trace import hit_from_kernel, lane_traverse
 
@@ -60,7 +60,7 @@ def test_walk_matches_reference_exactly(name, any_hit):
         want = jtrace.lane_traverse(js, JV3(*map(jnp.asarray, o)),
                                     JV3(*map(jnp.asarray, d)), 1e-3, 1e9,
                                     jnp.asarray(act), any_hit=any_hit)
-    got = lane_traverse(scene_from_reference(js),
+    got = lane_traverse(scene_from_reference(js, device="cpu"),
                         V3(*map(torch.from_numpy, o)),
                         V3(*map(torch.from_numpy, d)), 1e-3, 1e9,
                         torch.from_numpy(act), any_hit=any_hit)
@@ -74,7 +74,7 @@ def test_walk_matches_reference_exactly(name, any_hit):
 def test_hit_assembly_matches_reference():
     js, scale = _scene("standin3")
     o, d = _rays(scale, seed=6)
-    s = scene_from_reference(js)
+    s = scene_from_reference(js, device="cpu")
     to, td = V3(*map(torch.from_numpy, o)), V3(*map(torch.from_numpy, d))
     t, u, v, tri = lane_traverse(s, to, td, 1e-3, 1e9,
                                  torch.ones(N, dtype=torch.bool))
@@ -92,12 +92,12 @@ def test_hit_assembly_matches_reference():
 def test_closest_hit_wrapper_takes_plain_walk_on_cpu():
     js, scale = _scene("soup")
     o, d = _rays(scale, seed=8)
-    s = scene_from_reference(js)
-    before = dict(path_kernel.LAUNCHES)
+    s = scene_from_reference(js, device="cpu")
+    before = dict(traverse.LAUNCHES)
     ro, rd = V3(*map(torch.from_numpy, o)), V3(*map(torch.from_numpy, d))
-    got = path_kernel.closest_hit(s, ro, rd)
-    want = lane_traverse(s, ro, rd, 1e-3, 1e9,
-                         torch.ones(N, dtype=torch.bool))
+    act = torch.ones(N, dtype=torch.bool)
+    got = traverse.traverse(s, ro, rd, act, 1e-3, 1e9)
+    want = lane_traverse(s, ro, rd, 1e-3, 1e9, act)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    assert path_kernel.LAUNCHES == before   # no kernel launch on the CPU
+    assert traverse.LAUNCHES == before   # no kernel launch on the CPU
