@@ -14,8 +14,14 @@ the two full-size sphere frames (rtiow 400x225 at 64 spp, volumetric
 loops on CPU copies, the full-size split-path frames (the untextured 51k
 stand-in and the mixed stand-in with three spheres, 800x450, 32 spp)
 through `render_frame_wavefront`, and the driver in wavefront and auto
-modes.  Each phase prints one line; any failure raises, so the exit code
-is nonzero.  The last two lines are the kernels' JSON summary and
+modes.  Then the path kernel's wider scope (phases 13-14): every
+feature scene of the CPU frame tests (spheres, quads, area lights, media,
+sky, procedural textures, smooth normals, lens, shutter) at 64x36 through
+the kernel against the plain version on CPU copies, and three full-size
+mixed frames (the mixed stand-in, `mixed_scene`, the volumetric mesh)
+through `render_frame_fused`, which must launch the path kernel and no
+traversal kernel.  Each phase prints one line; any failure raises, so the
+exit code is nonzero.  The last two lines are the kernels' JSON summary and
 {"ok": true, "device": {...}}.  Needs one CUDA device; imports no JAX and
 nothing of the JAX package.
 """
@@ -46,6 +52,17 @@ SPHERE_FRAMES = (("rtiow_smoke_scene", 400, 225, 64),
 # two roots, range compares) and one medium's boundary interval
 SPHERE_FLOPS = 28
 MEDIUM_FLOPS = 40
+# one quad test (trace.py quad_pass): the plane's denominator and offset
+# (2 dots, 10), the parallel test (2), a subtract and a divide, the range
+# compares (2), the hit point (9), two crosses (18), two dots with w (10),
+# four range compares and the side compare (5)
+QUAD_FLOPS = 58
+# full-size mixed frames (name, width, height, spp; max_depth 50): the
+# JAX bench's iss50k_mixed_800x450_32spp, mixed_400x225_32spp and
+# volumetric_mesh_800x450_32spp cells
+MIXED_FRAMES = (("mixed stand-in", 800, 450, 32),
+                ("mixed_scene", 400, 225, 32),
+                ("volumetric mesh", 800, 450, 32))
 
 
 def phase(name: str, msg: str) -> None:
@@ -106,6 +123,33 @@ def device_ms(fn, kernel: str, reps: int) -> float:
 def table_bytes(scene, names) -> int:
     return sum(getattr(scene, k).numel() * getattr(scene, k).element_size()
                for k in names)
+
+
+def register_counts(log: str) -> dict:
+    """Registers per kernel from nvcc's -Xptxas -v output: the path
+    kernel's instances as "path_render_kernel<M>" (M its template bits),
+    the others by name."""
+    import re
+    regs, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            mangled = m.group(1)
+            inst = re.search(r"path_render_kernelILj(\d+)E", mangled)
+            name = (f"path_render_kernel<{inst.group(1)}>" if inst else
+                    next((k for k in ("sphere_render_kernel",
+                                      "traverse_sun_kernel",
+                                      "traverse_kernelILb0",
+                                      "traverse_kernelILb1")
+                          if k in mangled), mangled))
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name is not None:
+            regs[name.replace("traverse_kernelILb0", "traverse_kernel<0>")
+                 .replace("traverse_kernelILb1", "traverse_kernel<1>")] = \
+                int(m.group(1))
+            name = None
+    return regs
 
 
 def random_rays(n: int, seed: int, device):
@@ -537,13 +581,13 @@ def split_phases(dev, poses) -> dict:
             ["--input_txt", one_pose, "--output_dir", mixed_dir, "--wipe",
              "--width", "320", "--height", "180", "--spp", "16",
              "--mode", "auto", "--device", "cuda"]), scene=mixed)
-    chose = "render (wavefront on cuda)" in log.getvalue()
+    chose = "render (fused on cuda)" in log.getvalue()
     path_launches = path_kernel.LAUNCHES["dsrt_path_render"] - path_before
     phase("12 driver", f"wavefront rc {rc}, frames {pngs}; mixed scene in "
-                       f"auto mode rc {rc2}, chose wavefront {chose}, path "
+                       f"auto mode rc {rc2}, chose fused {chose}, path "
                        f"kernel launches {path_launches}")
-    require(rc2 == 0 and chose and path_launches == 0,
-            "auto mode did not choose wavefront")
+    require(rc2 == 0 and chose and path_launches > 0,
+            "auto mode did not choose the path kernel for the mixed scene")
 
     entries = {}
     for name, src_name in (("dsrt_traverse", "dsrt_traverse"),
@@ -570,6 +614,176 @@ def split_phases(dev, poses) -> dict:
     entries["dsrt_traverse"]["any_hit"] = out["any_hit"]
     return entries
 
+
+
+def mixed_cases(tex_path: str):
+    """(name, CPU scene, CPU camera, config extras) of the CPU frame
+    tests' scenes (tests/test_torch_mixed_frames.py) at 64x36."""
+    from dsrt_tpu_torch.models import feature_scenes as fs
+    from dsrt_tpu_torch.models import presets
+    from dsrt_tpu_torch.models.materials import Material
+    from dsrt_tpu_torch.models.mesh_gen import (iss_mixed_scene,
+                                                iss_standin_mesh)
+    from dsrt_tpu_torch.models.scene import SceneBuilder
+    from dsrt_tpu_torch.ops.camera import make_camera, point_camera_at
+    out = []
+    for name, (fn, frm, at, vfov, extra) in fs.CASES.items():
+        out.append((name, fn(SceneBuilder, Material,
+                             tex_path=tex_path).build(device="cpu"),
+                    make_camera(frm, at, vfov=vfov, width=64, height=36,
+                                aperture=extra.get("aperture", 0.0),
+                                device="cpu"), extra))
+    kw = dict(vfov=40.0, width=64, height=36, device="cpu")
+    out.append(("mixed_preset", presets.mixed_scene(device="cpu"),
+                make_camera((0, 0.8, 2.6), (0, 0.3, -1), vfov=50, width=64,
+                            height=36, device="cpu"), {}))
+    out.append(("mixed_standin", iss_mixed_scene(detail=2, device="cpu"),
+                point_camera_at(SUNLIT_CAM, **kw), {}))
+    out.append(("volumetric_mesh",
+                fs.volumetric_mesh(SceneBuilder, Material,
+                                   standin_mesh=iss_standin_mesh,
+                                   detail=2).build(device="cpu"),
+                point_camera_at(SUNLIT_CAM, **kw), {}))
+    return out
+
+
+def mixed_frame_scene(name: str, dev):
+    """(scene, camera, config) of a full-size mixed frame on the card."""
+    from dsrt_tpu_torch.config import RenderConfig
+    from dsrt_tpu_torch.models import feature_scenes as fs
+    from dsrt_tpu_torch.models import presets
+    from dsrt_tpu_torch.models.materials import Material
+    from dsrt_tpu_torch.models.mesh_gen import (iss_mixed_scene,
+                                                iss_standin_mesh)
+    from dsrt_tpu_torch.models.scene import SceneBuilder
+    from dsrt_tpu_torch.ops.camera import make_camera, point_camera_at
+    _, w, h, spp = next(f for f in MIXED_FRAMES if f[0] == name)
+    cfg = RenderConfig(width=w, height=h, spp=spp, max_depth=50)
+    if name == "mixed_scene":
+        return (presets.mixed_scene(device=dev),
+                make_camera((0, 0.8, 2.6), (0, 0.3, -1), vfov=50, width=w,
+                            height=h, device=dev), cfg)
+    scene = (iss_mixed_scene(detail=12, device=dev) if name ==
+             "mixed stand-in" else
+             fs.volumetric_mesh(SceneBuilder, Material,
+                                standin_mesh=iss_standin_mesh,
+                                detail=4).build(device=dev))
+    return scene, point_camera_at(BENCH_CAM, vfov=cfg.vfov, width=w,
+                                  height=h, device=dev), cfg
+
+
+def mixed_phases(dev, regs: dict) -> dict:
+    """Phases 13-14: the path kernel's wider scope.  Returns the mixed
+    frames for the path kernel's entry of the JSON line."""
+    from dsrt_tpu_torch.config import RenderConfig
+    from dsrt_tpu_torch.models.mesh_gen import write_panel_texture
+    from dsrt_tpu_torch.ops import path_kernel, traverse as tv
+    from dsrt_tpu_torch.ops.trace import walk_counter
+    from dsrt_tpu_torch.ops.traverse import (MT_FLOPS, SLAB_FLOPS,
+                                             roofline_ms)
+    from dsrt_tpu_torch.render import render_frame_fused, tonemap
+
+    # 13. every feature scene: the kernel on the card against the plain
+    # version on CPU copies (and on the card), 64x36, spp 2, depth 8
+    with tempfile.TemporaryDirectory() as td:
+        tex = os.path.join(td, "panel.png")
+        write_panel_texture(tex, size=16)
+        cases = mixed_cases(tex)
+    for name, scene_cpu, cam_cpu, extra in cases:
+        cfg = RenderConfig(width=64, height=36, spp=2, max_depth=8, **extra)
+        scene, cam = scene_cpu.to(dev), cam_cpu.to(dev)
+        acc_k, n_k = path_kernel.path_render(scene, cam, cfg)
+        acc_d, n_d = path_kernel.path_render_plain(scene, cam, cfg, 2)
+        acc_c, n_c = path_kernel.path_render_plain(scene_cpu, cam_cpu, cfg, 2)
+        torch.cuda.synchronize()
+        same, mean_d = frame_compare(tonemap(acc_k, cfg, 2),
+                                     tonemap(acc_c, cfg, 2))
+        exact = float((acc_k == acc_d).all(-1).float().mean())
+        max_abs = float((acc_k.cpu() - acc_c).abs().max())
+        n_k, n_c = int(n_k), int(n_c)
+        inst = path_kernel.instance_of(scene, cfg)
+        phase("13 mixed check",
+              f"{name} (instance {inst}, "
+              f"{regs.get(f'path_render_kernel<{inst}>', '?')} registers) "
+              f"64x36 spp2 depth8: u8 vs the CPU plain version {same:.4%} "
+              f"identical, mean |d| {mean_d:.4f}, accum max |d| "
+              f"{max_abs:.3g}, rays {n_k} vs {n_c} (tolerance: >= 98% "
+              f"identical, mean <= 1 u8, rays within 1%); accumulators "
+              f"identical to the plain version on the card on {exact:.4%} "
+              f"of pixels, rays {int(n_d)}; lit "
+              f"{float((acc_c > 0).float().mean()):.2f}")
+        require(same >= 0.98 and mean_d <= 1.0
+                and abs(n_k - n_c) <= 0.01 * n_c,
+                f"path kernel disagrees with the plain version on {name}")
+        require(float((acc_c > 0).float().mean()) > 0.01,
+                f"{name} frame is dark")
+
+    # 14. full size through render_frame_fused
+    frames = {}
+    for name, w, h, spp in MIXED_FRAMES:
+        t0 = time.perf_counter()
+        scene, cam, cfg = mixed_frame_scene(name, dev)
+        built = time.perf_counter() - t0
+        path_kernel.reset_launches()
+        tv.reset_launches()
+        secs, times, (img, rays) = wall_time(
+            lambda: render_frame_fused(scene, cam, cfg, with_count=True), 3)
+        launched = dict(path_kernel.LAUNCHES, **tv.LAUNCHES)
+        require(launched["dsrt_path_render"] > 0, f"{name}: path kernel not "
+                                                  "launched")
+        require(launched["dsrt_traverse"] == 0
+                and launched["dsrt_traverse_sun"] == 0,
+                f"{name}: a traversal kernel was launched")
+        require(img.shape == (h, w, 3) and img.max() > 0, f"{name} image")
+        require(rays >= w * h * spp, "ray count below one per sample")
+        k_full = event_ms(lambda: path_kernel.path_render(scene, cam, cfg), 3)
+        cfg1 = dataclasses.replace(cfg, spp=1)
+        k1 = event_ms(lambda: path_kernel.path_render(scene, cam, cfg1), 10)
+        p1 = event_ms(lambda: path_kernel.path_render_plain(scene, cam, cfg1,
+                                                            1), 1)
+        acc_k1, n_k1 = path_kernel.path_render(scene, cam, cfg1)
+        with walk_counter() as wc:
+            acc_p1, n_p1 = path_kernel.path_render_plain(scene, cam, cfg1, 1)
+        counts = {k: int(v) for k, v in wc.items()}
+        flops = (counts["visits"] * SLAB_FLOPS + counts["tests"] * MT_FLOPS
+                 + counts["spheres"] * SPHERE_FLOPS
+                 + counts["quads"] * QUAD_FLOPS
+                 + counts["media"] * MEDIUM_FLOPS)
+        bound, bound_by = roofline_ms(
+            flops, table_bytes(scene, ("bvh_pack", "thr_pack", "tri_pack",
+                                       "tri_shade", "tri_aux", "mat_pack",
+                                       "tex_pool"))
+            + path_kernel.PARAM_LEN * 4 + acc_p1.numel() * 4)
+        err1 = float((acc_k1 - acc_p1).abs().max())
+        same1 = float((acc_k1 == acc_p1).all(dim=-1).float().mean())
+        inst = path_kernel.instance_of(scene, cfg)
+        phase("14 mixed frame",
+              f"{name} {w}x{h} spp{spp} depth50 ({scene.n_tris} triangles, "
+              f"{scene.n_spheres} spheres, {scene.n_quads} quads, "
+              f"{scene.n_lights} lights, {scene.n_media} media; built in "
+              f"{built:.1f} s; instance {inst}, "
+              f"{regs.get(f'path_render_kernel<{inst}>', '?')} registers): "
+              f"frame {secs:.4f} s (reps "
+              f"{', '.join(f'{t:.4f}' for t in times)}), {rays} rays exact, "
+              f"{rays / secs / 1e6:.2f} Mrays/s, launches {launched} (4 "
+              f"frames); kernel alone {k_full:.3f} ms; spp1: kernel "
+              f"{k1:.3f} ms, plain {p1:.1f} ms, accumulators identical on "
+              f"{same1:.4%} of pixels, max |d| {err1:.3g}, rays {int(n_k1)} "
+              f"vs {int(n_p1)}; bound {bound:.4f} ms by {bound_by} "
+              f"({counts})")
+        require(same1 >= 0.98
+                and abs(int(n_k1) - int(n_p1)) <= 0.01 * int(n_p1),
+                f"kernel and plain disagree at the {name} frame")
+        frames[name] = {
+            "shape": f"{w}x{h} spp{spp} max_depth50", "instance": inst,
+            "registers": regs.get(f"path_render_kernel<{inst}>"),
+            "launches": launched["dsrt_path_render"],
+            "frame_ms": secs * 1e3, "frame_kernel_ms": k_full, "rays": rays,
+            "mrays_per_s": rays / secs / 1e6, "ms_spp1": k1,
+            "plain_ms_spp1": p1, "max_abs_err_spp1": err1,
+            "bound_ms_spp1": bound, "bound_by": bound_by,
+            "work_spp1": counts}
+    return frames
 
 
 def main() -> int:
@@ -605,11 +819,10 @@ def main() -> int:
     # 2. build the kernels from csrc/
     t0 = time.perf_counter()
     build.load()
-    regs = [ln.strip() for ln in build.build_info["log"].splitlines()
-            if "registers" in ln]
+    regs = register_counts(build.build_info["log"])
     phase("2 build", f"{time.perf_counter() - t0:.1f} s "
-                     f"(nvcc {build.build_info['seconds']:.1f} s); "
-                     + " | ".join(regs))
+                     f"(nvcc {build.build_info['seconds']:.1f} s); registers "
+                     + ", ".join(f"{k} {v}" for k, v in sorted(regs.items())))
 
     with tempfile.TemporaryDirectory() as td:
         tex = os.path.join(td, "panel.png")
@@ -713,7 +926,7 @@ def main() -> int:
             "kernel and plain disagree at the flagship frame")
     kernels["dsrt_path_render"] = {
         "name": "dsrt_path_render", "route": "cuda",
-        "source": "dsrt_tpu_torch/csrc/path_kernel.cu",
+        "source": "dsrt_tpu_torch/csrc/path_kernel.cuh",
         "replaces": "dsrt_tpu/ops/pallas_path.py:477",
         "launches": launches["dsrt_path_render"],
         "max_abs_err": err1, "ms": k1, "plain_ms": p1, "bound_ms": bound,
@@ -745,6 +958,14 @@ def main() -> int:
 
     kernels["dsrt_sphere_render"] = sphere_phases(dev)
     kernels.update(split_phases(dev, poses))
+    mixed = mixed_phases(dev, regs)
+    entry = kernels["dsrt_path_render"]
+    entry["registers"] = regs.get("path_render_kernel<0>")
+    entry["frames"] = mixed
+    entry["launches_by_frame"] = dict(
+        {"flagship": entry["launches"]},
+        **{k: v["launches"] for k, v in mixed.items()})
+    entry["launches"] = sum(entry["launches_by_frame"].values())
 
     require("jax" not in sys.modules, "jax was imported")
     require(not [m for m in sys.modules

@@ -1,211 +1,56 @@
-// The path-tracing megakernel for Hopper (sm_90a).
-//
-// Replaces dsrt_tpu/ops/pallas_path.py `_path_kernel` (launched by
-// `_run_path`) for its triangle scope: triangle meshes, flat normals,
-// lambertian / metal / dielectric / diffuse_light materials, image
-// textures, the directional sun with MIS, pinhole camera, no shutter.
-// It computes what that kernel computes, in the shape of the CUDA
-// reference renderer: ONE THREAD PER PIXEL runs every sample and every
-// bounce, with per-thread control flow and the per-pixel LCG stream
-// (x + y*W) ^ seed ^ salt drawn exactly as the scalar loop draws it.  The
-// TPU kernel's lockstep lanes, sample regeneration, scalar stacks and
-// one-hot gathers do not carry over.
-//
-// What bounds it on the H100: the tree walk is a chain of dependent
-// global loads (node row -> thread-table entry -> next node row), so a
-// thread is latency-bound, and neighbouring pixels diverge in depth,
-// material and walk length, so warps run partly idle.  This first version
-// takes the simplest correct form: 16x8-pixel blocks for some ray
-// coherence, read-only (__ldg) 16-byte loads of 64-byte table rows, the
-// binary octant-ordered walk of the plain version (the 8-ary wide-BVH
-// walk is later work), and one 64-bit atomic per block for the ray count.
+// The path kernel's instances for scenes without spheres and quads
+// (template bit K_PRIMS clear; instance 0 is the flagship's) and the C
+// entry point `dsrt_path_render`, which picks the instance that matches
+// the scene.  The kernel itself and its notes are in path_kernel.cuh;
+// the instances with spheres and quads are in path_kernel_prims.cu.
 //
 // Plain PyTorch version: dsrt_tpu_torch/ops/path_kernel.py
-// (path_render_plain) over ops/shade.py and ops/trace.py.
+// (path_render_plain) over ops/shade.py, ops/trace.py, ops/textures.py.
 
-#include <cuda_runtime.h>
-
-#include <cstdint>
-
-#include "common.cuh"
-#include "walk.cuh"
+#include "path_kernel.cuh"
 
 namespace dsrt {
+namespace path {
 
-constexpr int LAMBERTIAN = 0;
-constexpr int METAL = 1;
-constexpr int DIELECTRIC = 2;
-constexpr int DIFFUSE_LIGHT = 3;
-
-constexpr int BLOCK_W = 16;
-constexpr int BLOCK_H = 8;
-
-struct PathArgs {
-  Tables tb;
-  const float* tri_shade;
-  const float* mat;
-  const float* pool;
-  const int* tex_w;
-  const int* tex_h;
-  const int* tex_off;
-  const float* cam;  // origin, lower_left, horizontal, vertical
-  const float* sun;  // Ldir (3), radiance (3), shadow bias
-  float* accum;      // [height][width][3]
-  unsigned long long* nrays;
-  int width, height;      // pixel grid
-  int cam_w, cam_h;       // camera raster (seeding and raygen)
-  int spp;
-  uint32_t salt, seed;
-  int max_depth, rr_start;
-  float rr_max_p, t_min, t_max;
-  int n_textures, pool_n;
-  bool sun_on, textured;
-};
-
-__device__ __forceinline__ f3 sample_image(const PathArgs& a, int tex, float u, float v) {
-  return sample_texel(a.pool, a.tex_w, a.tex_h, a.tex_off, a.n_textures, a.pool_n, tex, u, v);
+int launch_plain_geometry(unsigned m, const PathArgs& a, const float* params, cudaStream_t s) {
+  static const KernelFn table[8] = {
+      path_render_kernel<0>,  path_render_kernel<2>,  path_render_kernel<4>,
+      path_render_kernel<6>,  path_render_kernel<8>,  path_render_kernel<10>,
+      path_render_kernel<12>, path_render_kernel<14>};
+  if ((m & K_PRIMS) || m >= (unsigned)N_INSTANCES) return (int)cudaErrorInvalidValue;
+  return launch_instance(table[m >> 1], m, a, params, s);
 }
 
-// One sample to completion (ops/shade.py trace_paths for one lane);
-// returns clamp01(L) and adds the rays it traced to `rays`.
-__device__ f3 trace_path(const PathArgs& a, f3 ro, f3 rd, uint32_t& st, unsigned& rays) {
-  const f3 sdir = mk(a.sun[0], a.sun[1], a.sun[2]);
-  const f3 srad = mk(a.sun[3], a.sun[4], a.sun[5]);
-  const float bias = a.sun[6];
-  f3 L = mk(0.0f, 0.0f, 0.0f);
-  f3 thr = mk(1.0f, 1.0f, 1.0f);
-  for (int depth = 0; depth < a.max_depth; ++depth) {
-    // 0. Russian roulette
-    if (depth >= a.rr_start) {
-      float u_rr = draw(st);
-      float p_rr = nmin(nmax(thr.x, nmax(thr.y, thr.z)), a.rr_max_p);
-      if (u_rr > p_rr) break;
-      float inv_p = 1.0f / (p_rr > 0.0f ? p_rr : 1.0f);
-      thr = scale(thr, inv_p);
-    }
-    // 1. closest hit; a miss sees the black background
-    ++rays;
-    WalkHit w = walk<false>(a.tb, ro, rd, a.t_min, a.t_max);
-    if (w.tri < 0) break;
-    SurfaceHit s = assemble(a.tri_shade, w, rd);
-    f3 n = s.n;
-    f3 p = mk(ro.x + w.t * rd.x, ro.y + w.t * rd.y, ro.z + w.t * rd.z);
-    const float* mp = a.mat + (size_t)s.mat * 16;
-    int mtype = (int)__ldg(mp);
-    // 2. emission
-    if (mtype == DIFFUSE_LIGHT) {
-      L = add(L, mul(thr, mk(__ldg(mp + 4), __ldg(mp + 5), __ldg(mp + 6))));
-      break;
-    }
-    // 3. albedo
-    f3 albedo = mk(__ldg(mp + 1), __ldg(mp + 2), __ldg(mp + 3));
-    if (a.textured && s.tex >= 0) albedo = mul(albedo, sample_image(a, s.tex, s.tu, s.tv));
-    // 4. specular
-    if (mtype == METAL) {
-      f3 unit_in = normalize(rd);
-      f3 refl = reflect(unit_in, n);
-      float fuzz = clamp01(__ldg(mp + 7));
-      f3 fz = random_in_unit_sphere(st);
-      f3 dir = add(refl, scale(fz, fuzz));
-      if (!(dot(dir, n) > 0.0f)) break;
-      thr = mul(thr, albedo);
-      ro = p;
-      rd = dir;
-      continue;
-    }
-    if (mtype == DIELECTRIC) {
-      f3 unit_in = normalize(rd);
-      float eta = __ldg(mp + 8);
-      if (eta <= 0.0f || !isfinite(eta)) eta = 1.5f;
-      float ratio = s.front ? 1.0f / eta : eta;
-      float cos_t = nmin(dot(neg(unit_in), n), 1.0f);
-      float sin_t = sqrtf(nmax(1.0f - cos_t * cos_t, 0.0f));
-      bool cannot = ratio * sin_t > 1.0f;
-      float refl_prob = schlick(cos_t, ratio);
-      float u_d = draw(st);
-      bool use_refl = cannot || (refl_prob > u_d);
-      ro = p;
-      rd = use_refl ? reflect(unit_in, n) : refract(unit_in, n, ratio);
-      continue;
-    }
-    if (mtype != LAMBERTIAN) continue;
-    // 5. sun MIS with a shadow ray from p + bias * n
-    if (a.sun_on) {
-      float cos_sun = nmax(dot(n, sdir), 0.0f);
-      if (cos_sun > 0.0f) {
-        ++rays;
-        f3 sh_o = mk(p.x + bias * n.x, p.y + bias * n.y, p.z + bias * n.z);
-        WalkHit sh = walk<true>(a.tb, sh_o, sdir, a.t_min, a.t_max);
-        if (sh.tri < 0) {
-          float pdf_brdf_s = cos_sun / PI_F;
-          float w_sun = pdf_brdf_s / (0.5f + 0.5f * pdf_brdf_s);
-          L = add(L, scale(mul(mul(thr, albedo), srad), w_sun));
-        }
-      }
-    }
-    // 6-7. cosine-hemisphere continuation; throughput *= albedo
-    float pdf;
-    f3 world = sample_cosine_hemisphere(n, st, pdf);
-    if (!(pdf > 0.0f)) break;
-    thr = mul(thr, albedo);
-    ro = p;
-    rd = world;
-  }
-  return mk(clamp01(L.x), clamp01(L.y), clamp01(L.z));
+// the instance a scene needs: its template bits from the counts and flags
+unsigned required_instance(const PathArgs& a) {
+  unsigned m = 0;
+  if (a.n_sph > 0 || a.n_quads > 0) m |= K_PRIMS;
+  if (a.n_med > 0) m |= K_MEDIA;
+  if (a.n_lights > 0) m |= K_LIGHTS;
+  if (a.flags & (ENV | PTEX | SMOOTH | APERTURE | SHUTTER | MOVING)) m |= K_EXTRA;
+  return m;
 }
 
-__global__ void __launch_bounds__(BLOCK_W* BLOCK_H)
-    path_render_kernel(const PathArgs a) {
-  const int x = blockIdx.x * BLOCK_W + threadIdx.x;
-  const int y = blockIdx.y * BLOCK_H + threadIdx.y;
-  unsigned rays = 0;
-  if (x < a.width && y < a.height) {
-    uint32_t st = ((uint32_t)x + (uint32_t)y * (uint32_t)a.cam_w) ^ a.seed ^ a.salt;
-    const f3 org = mk(a.cam[0], a.cam[1], a.cam[2]);
-    const float spp_f = (float)a.spp;
-    const float wm1 = (float)(a.cam_w - 1), hm1 = (float)(a.cam_h - 1);
-    f3 acc = mk(0.0f, 0.0f, 0.0f);
-    for (int s = 0; s < a.spp; ++s) {
-      float jxu = draw(st);
-      float jyu = draw(st);
-      float sf = (float)s;
-      float jx = (sf + jxu) / spp_f;
-      float jy = (sf + jyu) / spp_f;
-      float u = ((float)x + jx) / wm1;
-      float v = ((float)y + jy) / hm1;
-      f3 rd = mk(a.cam[3] + u * a.cam[6] + v * a.cam[9] - a.cam[0],
-                 a.cam[4] + u * a.cam[7] + v * a.cam[10] - a.cam[1],
-                 a.cam[5] + u * a.cam[8] + v * a.cam[11] - a.cam[2]);
-      acc = add(acc, trace_path(a, org, rd, st, rays));
-    }
-    float* out = a.accum + ((size_t)y * a.width + x) * 3;
-    out[0] = acc.x;
-    out[1] = acc.y;
-    out[2] = acc.z;
-  }
-  __shared__ unsigned long long block_rays;
-  if (threadIdx.x == 0 && threadIdx.y == 0) block_rays = 0ull;
-  __syncthreads();
-  if (rays) atomicAdd(&block_rays, (unsigned long long)rays);
-  __syncthreads();
-  if (threadIdx.x == 0 && threadIdx.y == 0) atomicAdd(a.nrays, block_rays);
-}
-
+}  // namespace path
 }  // namespace dsrt
 
 extern "C" {
 
 int dsrt_path_render(const float* bvh, const float* thr, const float* tri,
-                     const float* tri_shade, const float* mat, const float* pool,
-                     const int* tex_w, const int* tex_h, const int* tex_off,
-                     const float* cam, const float* sun, float* accum,
-                     unsigned long long* nrays, int width, int height, int cam_w,
-                     int cam_h, int spp, int salt, int seed, int max_depth, int rr_start,
-                     float rr_max_p, float t_min, float t_max, int end, int tri_rows,
-                     int n_textures, int pool_n, int sun_on, int textured, void* stream) {
-  dsrt::PathArgs a;
+                     const float* tri_shade, const float* tri_aux, const float* mat,
+                     const float* pool, const int* tex_w, const int* tex_h, const int* tex_off,
+                     const float* cam, const float* sun, const float* params, float* accum,
+                     unsigned long long* nrays, int width, int height, int cam_w, int cam_h,
+                     int spp, int salt, int seed, int max_depth, int rr_start, float rr_max_p,
+                     float t_min, float t_max, int end, int tri_rows, int n_textures, int pool_n,
+                     int n_sph, int n_quads, int n_lights, int n_med, int env, int flags,
+                     int instance, float env_rot, float env_scale, float time0, float dt,
+                     void* stream) {
+  using namespace dsrt::path;
+  PathArgs a;
   a.tb = dsrt::Tables{bvh, thr, tri, end, tri_rows};
   a.tri_shade = tri_shade;
+  a.tri_aux = tri_aux;
   a.mat = mat;
   a.pool = pool;
   a.tex_w = tex_w;
@@ -229,13 +74,24 @@ int dsrt_path_render(const float* bvh, const float* thr, const float* tri,
   a.t_max = t_max;
   a.n_textures = n_textures;
   a.pool_n = pool_n;
-  a.sun_on = sun_on != 0;
-  a.textured = textured != 0;
-  dim3 block(dsrt::BLOCK_W, dsrt::BLOCK_H);
-  dim3 grid((width + dsrt::BLOCK_W - 1) / dsrt::BLOCK_W,
-            (height + dsrt::BLOCK_H - 1) / dsrt::BLOCK_H);
-  dsrt::path_render_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  a.n_sph = n_sph;
+  a.n_quads = n_quads;
+  a.n_lights = n_lights;
+  a.n_med = n_med;
+  a.env = env;
+  a.flags = (unsigned)flags;
+  a.env_rot = env_rot;
+  a.env_scale = env_scale;
+  a.time0 = time0;
+  a.dt = dt;
+  if (n_sph < 0 || n_sph > MAX_SPH || n_quads < 0 || n_quads > MAX_QUADS || n_lights < 0 ||
+      n_lights > MAX_LIGHTS || n_med < 0 || n_med > MAX_MED ||
+      (unsigned)instance != required_instance(a))
+    return (int)cudaErrorInvalidValue;
+  const unsigned m = (unsigned)instance;
+  cudaStream_t s = (cudaStream_t)stream;
+  return (m & K_PRIMS) ? launch_primitives(m, a, params, s)
+                       : launch_plain_geometry(m, a, params, s);
 }
 
 const char* dsrt_error_string(int code) {

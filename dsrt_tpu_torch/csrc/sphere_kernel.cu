@@ -31,6 +31,9 @@
 // indexed global loads.  A launch copies its parameters into the constant
 // bank on its stream first, so launches are ordered by that stream.
 //
+// The sphere, medium, shadow and procedural-texture device code is
+// shared with the path kernel (csrc/prims.cuh).
+//
 // Plain PyTorch version: dsrt_tpu_torch/ops/sphere_kernel.py
 // (sphere_render_plain) over ops/shade.py, ops/trace.py, ops/textures.py.
 
@@ -39,6 +42,7 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "prims.cuh"
 
 namespace dsrt {
 namespace sph {
@@ -47,9 +51,6 @@ constexpr int LAMBERTIAN = 0;
 constexpr int METAL = 1;
 constexpr int DIELECTRIC = 2;
 constexpr int DIFFUSE_LIGHT = 3;
-constexpr int PTEX_CHECKER = 1;
-constexpr int PTEX_NOISE = 2;
-constexpr int PTEX_MARBLE = 3;
 
 constexpr int MAX_SPH = 16;
 constexpr int MAX_MED = 4;
@@ -98,93 +99,25 @@ struct Hit {
   int med;  // medium index, -1 for a surface
 };
 
-__device__ __forceinline__ f3 centre(const Args& a, int i, float tm) {
-  float cx = P.sph[i][0], cy = P.sph[i][1], cz = P.sph[i][2];
-  if (a.flags & MOVING) {
-    cx = cx + tm * (P.sph[i][5] - cx);
-    cy = cy + tm * (P.sph[i][6] - cy);
-    cz = cz + tm * (P.sph[i][7] - cz);
-  }
-  return mk(cx, cy, cz);
-}
-
-// sphere i along the ray: the accepted root in [t_min, closest], if any
-__device__ __forceinline__ bool sphere_root(const Args& a, int i, f3 ro, f3 rd, float av, float tm,
-                                            float closest, float& root, f3& c) {
-  c = centre(a, i, tm);
-  float r = P.sph[i][3];
-  f3 oc = sub(ro, c);
-  float half_b = dot(oc, rd);
-  float cq = dot(oc, oc) - r * r;
-  float disc = half_b * half_b - av * cq;
-  float sq = sqrtf(nmax(disc, 0.0f));
-  float root1 = (-half_b - sq) / av;
-  float root2 = (-half_b + sq) / av;
-  bool r1ok = root1 >= a.t_min && root1 <= closest;
-  root = r1ok ? root1 : root2;
-  return disc >= 0.0f && root >= a.t_min && root <= closest;
-}
-
-// medium i along the ray: enters its boundary interval (clipped to
-// [t_min, closest]) and the free path from draw u ends inside it
-__device__ __forceinline__ bool medium_hit(const Args& a, int i, f3 ro, f3 rd, float av,
-                                           float rlen, float closest, float u, float& t) {
-  const float* m = P.med[i];
-  f3 oc = mk(ro.x - m[1], ro.y - m[2], ro.z - m[3]);
-  float half_b = dot(oc, rd);
-  float cq = dot(oc, oc) - m[4] * m[4];
-  float disc = half_b * half_b - av * cq;
-  float sq = sqrtf(nmax(disc, 0.0f));
-  bool has;
-  float t0, t1;
-  if (m[0] == 0.0f) {  // sphere boundary: both roots
-    has = disc > 0.0f;
-    t0 = (-half_b - sq) / av;
-    t1 = (-half_b + sq) / av;
-  } else {  // box boundary: slab interval
-    const float o[3] = {ro.x, ro.y, ro.z};
-    const float d[3] = {rd.x, rd.y, rd.z};
-    t0 = -0x1.c363ccp+127f;  // -3e38
-    t1 = 0x1.c363ccp+127f;
-    for (int ax = 0; ax < 3; ++ax) {
-      float inv = 1.0f / d[ax];
-      float ta = (m[5 + ax] - o[ax]) * inv;
-      float tb = (m[8 + ax] - o[ax]) * inv;
-      t0 = nmax(t0, nmin(ta, tb));
-      t1 = nmin(t1, nmax(ta, tb));
-    }
-    has = t1 > t0;
-  }
-  float e0 = nmax(t0, a.t_min);
-  float e1 = nmin(t1, closest);
-  float dist_inside = (e1 - e0) * rlen;
-  float hit_dist = m[11] * (float)log((double)nmax(u, 0x1.4484c0p-100f));
-  t = e0 + hit_dist / nmax(rlen, 0x1.4484c0p-100f);
-  return has && e0 < e1 && hit_dist <= dist_inside;
-}
-
 // closest hit: spheres in order (later ones win ties), then media
 __device__ Hit closest_hit(const Args& a, f3 ro, f3 rd, float tm, uint32_t& st) {
   Hit h{false, a.t_max, mk(0.0f, 0.0f, 0.0f), false, 0, -1};
   const float av = dot(rd, rd);
+  const bool moving = (a.flags & MOVING) != 0;
   for (int i = 0; i < a.n_sph; ++i) {
     float root;
     f3 c;
-    if (!sphere_root(a, i, ro, rd, av, tm, h.t, root, c)) continue;
-    float r = P.sph[i][3];
-    float inv_r = 1.0f / (r != 0.0f ? r : 1.0f);
-    f3 nv = mk((ro.x + root * rd.x - c.x) * inv_r, (ro.y + root * rd.y - c.y) * inv_r,
-               (ro.z + root * rd.z - c.z) * inv_r);
-    bool front = (rd.x * nv.x + rd.y * nv.y + rd.z * nv.z) < 0.0f;
-    float sgn = front ? 1.0f : -1.0f;
-    h = Hit{true, root, scale(nv, sgn), front, (int)P.sph[i][4], -1};
+    if (!sphere_root(P.sph[i], moving, ro, rd, av, tm, a.t_min, h.t, root, c)) continue;
+    bool front;
+    f3 nv = sphere_normal(P.sph[i], ro, rd, root, c, front);
+    h = Hit{true, root, nv, front, (int)P.sph[i][4], -1};
   }
   if (a.n_med > 0) {
     const float rlen = sqrtf(av);
     for (int i = 0; i < a.n_med; ++i) {
       float u = draw(st);
       float t;
-      if (medium_hit(a, i, ro, rd, av, rlen, h.t, u, t))
+      if (medium_hit(P.med[i], ro, rd, av, rlen, a.t_min, h.t, u, t))
         h = Hit{true, t, mk(1.0f, 0.0f, 0.0f), true, 0, i};
     }
   }
@@ -194,42 +127,9 @@ __device__ Hit closest_hit(const Args& a, f3 ro, f3 rd, float tm, uint32_t& st) 
 // shadow query: blocked by any sphere or medium; every medium still draws
 __device__ bool blocked(const Args& a, f3 ro, f3 rd, float tm, uint32_t& st) {
   const float av = dot(rd, rd);
-  bool hit = false;
-  for (int i = 0; i < a.n_sph && !hit; ++i) {
-    float root;
-    f3 c;
-    hit = sphere_root(a, i, ro, rd, av, tm, a.t_max, root, c);
-  }
-  if (a.n_med > 0) {
-    const float rlen = sqrtf(av);
-    for (int i = 0; i < a.n_med; ++i) {
-      float u = draw(st);
-      float t;
-      if (!hit) hit = medium_hit(a, i, ro, rd, av, rlen, a.t_max, u, t);
-    }
-  }
-  return hit;
-}
-
-// albedo of a checker / marble / noise material at p
-__device__ f3 procedural(const float* mp, f3 base, f3 p) {
-  int kind = (int)mp[9];
-  float sc = mp[10];
-  if (kind == PTEX_CHECKER) {
-    float sines = (float)sin((double)(sc * p.x)) * (float)sin((double)(sc * p.y)) *
-                  (float)sin((double)(sc * p.z));
-    return sines < 0.0f ? mk(mp[11], mp[12], mp[13]) : base;
-  }
-  if (kind == PTEX_MARBLE) {
-    float turb = perlin_turb(p);
-    float m = 0.5f * (1.0f + (float)sin((double)(sc * p.z + 10.0f * turb)));
-    return mk(m, m, m);
-  }
-  if (kind == PTEX_NOISE) {
-    float nv = clamp01(perlin_turb(p));
-    return mk(nv, nv, nv);
-  }
-  return base;
+  bool hit = spheres_block(P.sph, a.n_sph, (a.flags & MOVING) != 0, ro, rd, av, tm, a.t_min,
+                           a.t_max);
+  return media_block(P.med, a.n_med, ro, rd, av, a.t_min, a.t_max, hit, st);
 }
 
 // One sample to completion (ops/shade.py trace_paths for one lane);

@@ -11,8 +11,10 @@ force a renderer.  Wavefront's sample slots halve until they divide spp.
 
 Usage:
     python -m dsrt_tpu_torch.driver --input_txt poses.txt --output_dir out \
-        [--obj mesh.obj | --standin_detail 2 --standin_tex panel.png] \
-        [--width 800 --height 450] [--spp 1000] [--device cuda] \
+        [--obj mesh.obj [--smooth] | --standin_detail 2 \
+         --standin_tex panel.png] [--env_map sky.hdr --env_rotation 0 \
+         --env_scale 1] [--width 800 --height 450] [--spp 1000] \
+        [--device cuda] \
         [--mode auto|fused|parity|wavefront|queue] [--spp_batch 8]
 
 `--device cuda` (the default) runs the CUDA kernels and fails when no
@@ -61,6 +63,9 @@ def build_parser() -> argparse.ArgumentParser:
                    default=[1e5, 9.5e4, 9e4])
     p.add_argument("--obj", default="", help="OBJ mesh path (model frame)")
     p.add_argument("--scale", type=float, default=1.0)
+    p.add_argument("--smooth", action="store_true",
+                   help="honour the OBJ's vn normals (smooth shading; flat "
+                        "by default)")
     p.add_argument("--standin_tex", default="",
                    help="image texture for the stand-in mesh's panel and "
                         "radiator quads")
@@ -68,6 +73,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="procedural ISS stand-in detail when no --obj")
     p.add_argument("--bvh", choices=["median", "sah", "sbvh"],
                    default="sbvh", help="BVH builder")
+    p.add_argument("--env_map", default="",
+                   help="equirect environment-map image for the sky (.hdr "
+                        "stays linear radiance); black without one")
+    p.add_argument("--env_rotation", type=float, default=0.0,
+                   help="env map rotation about +y [deg]")
+    p.add_argument("--env_scale", type=float, default=1.0,
+                   help="env radiance multiplier")
     p.add_argument("--start_frame", type=int, default=0)
     p.add_argument("--resume", action="store_true",
                    help="skip frames whose PNG already exists")
@@ -136,7 +148,7 @@ def build_scene(args, timer: StageTimer, device):
         if args.obj:
             from dsrt_tpu_torch.models.obj import load_obj
             mesh = load_obj(args.obj, Material.lambertian((0.73, 0.73, 0.73)),
-                            args.scale)
+                            args.scale, smooth=args.smooth)
         else:
             from dsrt_tpu_torch.models.mesh_gen import iss_standin_mesh
             mesh = iss_standin_mesh(args.standin_detail,
@@ -146,9 +158,14 @@ def build_scene(args, timer: StageTimer, device):
                          sun_radiance=tuple(args.sun_radiance),
                          seed=args.seed, bvh_method=args.bvh)
         b.add_mesh(mesh)
+        if args.env_map:
+            b.set_environment(args.env_map, rotation_deg=args.env_rotation,
+                              scale=args.env_scale)
         scene = b.build(device=device)
     print(f"Scene: {scene.n_tris} triangles, {scene.n_nodes} BVH nodes, "
-          f"{scene.mat_pack.shape[0]} materials")
+          f"{scene.n_spheres} spheres, {scene.mat_pack.shape[0]} materials"
+          f"{', smooth' if scene.has_smooth else ''}"
+          f"{', env sky' if scene.has_env else ''}")
     return scene
 
 

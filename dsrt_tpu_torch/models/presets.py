@@ -1,4 +1,4 @@
-"""Test scenes (port of dsrt_tpu/models/presets.py:21-98).
+"""Test scenes (port of dsrt_tpu/models/presets.py:21-149).
 
 - `rtiow_smoke_scene`: ground + three spheres (lambertian, dielectric,
   metal), sun on; sphere scenes of this kind go to the sphere kernel.
@@ -9,6 +9,9 @@
 - `dof_motion_scene`, `env_sphere_scene`: sphere scenes for depth of
   field with motion blur, and for the environment-map sky.
 - `single_triangle_scene`, `random_tri_soup_scene`: triangle scenes.
+- `cornell_box_scene`: quads only (five walls, a quad light, two boxes),
+  sun off; `mixed_scene`: a small stand-in mesh, three spheres and a quad
+  light under the sun.  Both go to the path kernel.
 
 Every builder puts its tables on the card unless `device` says otherwise.
 """
@@ -118,4 +121,33 @@ def random_tri_soup_scene(n: int = 256, sun: bool = True, seed: int = 1337,
         e1 = rng.normal(0, 0.12, 3)
         e2 = rng.normal(0, 0.12, 3)
         b.add_triangle(c, c + e1, c + e2, mats[i % len(mats)])
+    return b.build(device=device)
+
+
+def cornell_box_scene(seed: int = 1337, device=None) -> Scene:
+    """A unit Cornell box of quads: five walls, a quad area light under
+    the ceiling and two boxes; sun off."""
+    from dsrt_tpu_torch.models.feature_scenes import cornell
+    return cornell(SceneBuilder, Material, seed=seed).build(device=device)
+
+
+def mixed_scene(seed: int = 1337, device=None) -> Scene:
+    """Mixed geometry: the detail-1 stand-in shrunk to tabletop scale
+    (SAH BVH), a ground sphere, a glass and a metal sphere, and a
+    downward-facing quad light, under the sun."""
+    from dsrt_tpu_torch.models.mesh_gen import iss_standin_mesh
+    b = SceneBuilder(sun_enabled=True, sun_dir=(-0.4, -0.8, -0.45),
+                     sun_radiance=(6.0, 5.7, 5.4), seed=seed,
+                     bvh_method="sah")
+    mesh = iss_standin_mesh(1)
+    for arr in (mesh.v0, mesh.v1, mesh.v2):
+        arr *= 0.012
+    b.add_mesh(mesh, translate=(0.0, 0.3, -1.2))
+    b.add_sphere((0.0, -100.5, -1.0), 100.0,
+                 Material.lambertian((0.8, 0.8, 0.0)))
+    b.add_sphere((-0.9, 0.0, -1.0), 0.45, Material.dielectric(1.5))
+    b.add_sphere((0.9, 0.0, -1.0), 0.45,
+                 Material.metal((0.8, 0.6, 0.2), fuzz=0.05))
+    b.add_quad((-0.5, 1.8, -1.7), (1.0, 0.0, 0.0), (0.0, 0.0, 1.0),
+               Material.diffuse_light((10.0, 9.5, 9.0)), flip_face=True)
     return b.build(device=device)

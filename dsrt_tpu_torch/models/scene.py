@@ -14,14 +14,21 @@ packing), emitting only the main-path tables:
 - `tri_shade` f32[T,16]: normal, uv0, uv1, uv2, material, texture;
 - `mat_pack` f32[M,16]: type, albedo, emissive, fuzz, ref_idx, ...;
 - the texture pool (bf16-representable f32 values) and its headers;
+- `tri_aux` f32[Tp,16] (row-aligned with tri_pack): per-vertex shading
+  normals vn0, vn1, vn2 (the flat normal where a corner has none),
+  uv0, uv1, uv2, texture;
 - spheres (`sph_center`, `sph_center2` for moving centres, `sph_radius`,
-  `sph_mat`), the emissive-sphere light list `light_idx`, constant media
-  (`med_*`) and the environment-map sky (`env_tex`, a texture-pool
+  `sph_mat`), quads (`quad_q`, `quad_u`, `quad_v` and the derived
+  `quad_n`, `quad_w`, `quad_d`, `quad_area`, computed in float64 and
+  stored as f32; `quad_mat`), the area-light list (`light_kind` 0 = sphere,
+  1 = quad, `light_idx` its row; spheres first, then quads), constant
+  media (`med_*`) and the environment-map sky (`env_tex`, a texture-pool
   entry, with `env_rotation` in radians and `env_scale`).
 
-The build-time quantizations that change pixels are kept: bf16 UVs on
-flat-textured scenes and the bf16-rounded texture pool.  Quads and
-smooth (vn) shading are not ported yet.
+Material rows are numbered in insertion order: triangles, spheres, then
+quads.  The build-time quantizations that change pixels are kept: bf16
+UVs on flat-textured scenes (smooth scenes keep f32 UVs) and the
+bf16-rounded texture pool.
 """
 
 from __future__ import annotations
@@ -42,12 +49,16 @@ from dsrt_tpu_torch.models.textures import TextureRegistry
 # Scene's field names
 TABLES = (("bvh_pack", np.float32), ("thr_pack", np.float32),
           ("tri_pack", np.float32), ("tri_shade", np.float32),
-          ("mat_pack", np.float32), ("tex_pool", np.float32),
+          ("tri_aux", np.float32), ("mat_pack", np.float32), ("tex_pool", np.float32),
           ("tex_w", np.int32), ("tex_h", np.int32), ("tex_off", np.int32),
           ("sun_dir", np.float32), ("sun_radiance", np.float32),
           ("sph_center", np.float32), ("sph_center2", np.float32),
           ("sph_radius", np.float32), ("sph_mat", np.int32),
-          ("light_idx", np.int32),
+          ("quad_q", np.float32), ("quad_u", np.float32),
+          ("quad_v", np.float32), ("quad_n", np.float32),
+          ("quad_w", np.float32), ("quad_d", np.float32),
+          ("quad_area", np.float32), ("quad_mat", np.int32),
+          ("light_idx", np.int32), ("light_kind", np.int32),
           ("med_kind", np.int32), ("med_center", np.float32),
           ("med_radius", np.float32), ("med_min", np.float32),
           ("med_max", np.float32), ("med_neg_inv_density", np.float32),
@@ -68,6 +79,7 @@ class Scene:
     thr_pack: torch.Tensor
     tri_pack: torch.Tensor
     tri_shade: torch.Tensor
+    tri_aux: torch.Tensor        # f32[Tp,16]: vn0 vn1 vn2 uv0 uv1 uv2 tex
     mat_pack: torch.Tensor
     tex_pool: torch.Tensor
     tex_w: torch.Tensor
@@ -79,7 +91,16 @@ class Scene:
     sph_center2: torch.Tensor    # f32[S,3] centre at shutter time 1
     sph_radius: torch.Tensor     # f32[S]
     sph_mat: torch.Tensor        # i32[S]
-    light_idx: torch.Tensor      # i32[n_lights] sphere rows (dummy [0])
+    quad_q: torch.Tensor         # f32[Q,3] corner (one dummy row when Q = 0)
+    quad_u: torch.Tensor         # f32[Q,3] edge
+    quad_v: torch.Tensor         # f32[Q,3] edge
+    quad_n: torch.Tensor         # f32[Q,3] unit normal of u x v
+    quad_w: torch.Tensor         # f32[Q,3] (u x v) / |u x v|^2
+    quad_d: torch.Tensor         # f32[Q] n . q
+    quad_area: torch.Tensor      # f32[Q] |u x v|
+    quad_mat: torch.Tensor       # i32[Q]
+    light_idx: torch.Tensor      # i32[n_lights] sphere or quad rows (dummy [0])
+    light_kind: torch.Tensor     # i32[n_lights] 0 sphere, 1 quad (dummy [0])
     med_kind: torch.Tensor       # i32[M]: MED_SPHERE or MED_BOX
     med_center: torch.Tensor     # f32[M,3]
     med_radius: torch.Tensor     # f32[M]
@@ -104,6 +125,10 @@ class Scene:
     env_rotation: float          # radians
     env_scale: float
     seed: int
+    # what the kernel wrappers derive from the tables once per scene
+    # (ops/path_kernel.py); shared by the copies `with_sun` makes
+    cache: dict = dataclasses.field(default_factory=dict, compare=False,
+                                    repr=False)
 
     @property
     def device(self) -> torch.device:
@@ -114,7 +139,7 @@ class Scene:
         return self.env_tex >= 0
 
     def to(self, device) -> "Scene":
-        return dataclasses.replace(self, **{
+        return dataclasses.replace(self, cache={}, **{
             name: getattr(self, name).to(device) for name, _ in TABLES})
 
     def with_sun(self, sun_dir) -> "Scene":
@@ -226,18 +251,16 @@ class _MeshEntry:
     uv2: np.ndarray
     materials: List[Material]
     tex_paths: List[str]
-    smooth: bool = False   # carries per-vertex (vn) normals
-
-
-def _queued(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to dsrt_tpu_torch yet (ROADMAP {item})")
+    # per-vertex shading normals (smooth shading); None = flat
+    n0: Optional[np.ndarray] = None
+    n1: Optional[np.ndarray] = None
+    n2: Optional[np.ndarray] = None
 
 
 class SceneBuilder:
-    """Host scene compiler: triangles, spheres, constant media, materials
-    (deduplicated by object identity), image textures, the environment
-    sky, directional sun."""
+    """Host scene compiler: triangles (flat or smooth), spheres, quads and
+    boxes, constant media, materials (deduplicated by object identity),
+    image textures, the environment sky, directional sun."""
 
     def __init__(self, sun_enabled: bool = True,
                  sun_dir: Tuple[float, float, float] = (0.0, 1.0, 0.0),
@@ -245,6 +268,7 @@ class SceneBuilder:
                  seed: int = 1337, bvh_method: str = "median"):
         self._meshes: List[_MeshEntry] = []
         self._spheres: List[tuple] = []
+        self._quads: List[tuple] = []
         self._media: List[tuple] = []
         self._env: Optional[tuple] = None   # (path or array, rot, scale)
         self.sun_enabled = sun_enabled
@@ -261,12 +285,41 @@ class SceneBuilder:
             np.asarray([uv0], np.float32), np.asarray([uv1], np.float32),
             np.asarray([uv2], np.float32), [material], [tex_path]))
 
-    def add_mesh(self, mesh) -> None:
-        """Add a models.obj.MeshData (OBJ load or procedural mesh)."""
+    def add_mesh(self, mesh, translate=None, rotate_y_deg: float = 0.0,
+                 flip_face: bool = False) -> None:
+        """Add a models.obj.MeshData (OBJ load or procedural mesh), with
+        build-time instancing applied rotate-then-translate: rotation
+        about +Y (x' = cos t x + sin t z, z' = -sin t x + cos t z, in
+        float64), a vertex offset, and flip_face, which reverses the
+        winding (and negates and swaps the vn normals)."""
+        v0, v1, v2 = mesh.v0, mesh.v1, mesh.v2
+        n0 = getattr(mesh, "n0", None)
+        n1 = getattr(mesh, "n1", None)
+        n2 = getattr(mesh, "n2", None)
+        if rotate_y_deg:
+            t = np.deg2rad(float(rotate_y_deg))
+            c, s = np.cos(t), np.sin(t)
+            rot = np.array([[c, 0.0, s], [0.0, 1.0, 0.0], [-s, 0.0, c]],
+                           np.float64)
+
+            def turn(a):
+                return (a.astype(np.float64) @ rot.T).astype(np.float32)
+
+            v0, v1, v2 = turn(v0), turn(v1), turn(v2)
+            if n0 is not None:
+                n0, n1, n2 = turn(n0), turn(n1), turn(n2)
+        if translate is not None:
+            off = np.asarray(translate, np.float32)
+            v0, v1, v2 = v0 + off, v1 + off, v2 + off
+        uv0, uv1, uv2 = mesh.uv0, mesh.uv1, mesh.uv2
+        if flip_face:
+            v1, v2 = v2, v1
+            uv1, uv2 = uv2, uv1
+            if n0 is not None:
+                n0, n1, n2 = -n0, -n2, -n1
         self._meshes.append(_MeshEntry(
-            mesh.v0, mesh.v1, mesh.v2, mesh.uv0, mesh.uv1, mesh.uv2,
-            list(mesh.materials), list(mesh.tex_paths),
-            smooth=getattr(mesh, "n0", None) is not None))
+            v0, v1, v2, uv0, uv1, uv2, list(mesh.materials),
+            list(mesh.tex_paths), n0=n0, n1=n1, n2=n2))
 
     def add_sphere(self, center, radius: float, material: Material,
                    center2=None) -> None:
@@ -277,11 +330,32 @@ class SceneBuilder:
         c2 = c if center2 is None else np.asarray(center2, np.float32)
         self._spheres.append((c, float(radius), material, c2))
 
-    def add_quad(self, *a, **kw) -> None:
-        raise _queued("add_quad", "queue 1 item 1")
+    def add_quad(self, q, u, v, material: Material,
+                 flip_face: bool = False) -> None:
+        """Planar quad: corner q and edge vectors u, v.  flip_face swaps
+        the edges, which negates the normal."""
+        if flip_face:
+            u, v = v, u
+        self._quads.append((np.asarray(q, np.float32),
+                            np.asarray(u, np.float32),
+                            np.asarray(v, np.float32), material))
 
-    def add_box(self, *a, **kw) -> None:
-        raise _queued("add_box", "queue 1 item 1")
+    def add_box(self, a, b, material: Material) -> None:
+        """Axis-aligned box as six quads (front, right, back, left, top,
+        bottom)."""
+        a = np.asarray(a, np.float64)
+        b = np.asarray(b, np.float64)
+        mn = np.minimum(a, b)
+        mx = np.maximum(a, b)
+        dx = np.array([mx[0] - mn[0], 0, 0])
+        dy = np.array([0, mx[1] - mn[1], 0])
+        dz = np.array([0, 0, mx[2] - mn[2]])
+        self.add_quad((mn[0], mn[1], mx[2]), dx, dy, material)
+        self.add_quad((mx[0], mn[1], mx[2]), -dz, dy, material)
+        self.add_quad((mx[0], mn[1], mn[2]), -dx, dy, material)
+        self.add_quad((mn[0], mn[1], mn[2]), dz, dy, material)
+        self.add_quad((mn[0], mx[1], mx[2]), dx, -dz, material)
+        self.add_quad((mn[0], mn[1], mn[2]), dx, dz, material)
 
     def add_constant_medium_sphere(self, center, radius: float,
                                    density: float, albedo) -> None:
@@ -333,11 +407,14 @@ class SceneBuilder:
             return mat_index[key]
 
         tv0, tv1, tv2, tuv0, tuv1, tuv2 = [], [], [], [], [], []
+        tn0, tn1, tn2 = [], [], []
         tmat, ttex = [], []
         has_smooth = False
+        zero3 = np.zeros(3, np.float32)
         textured_mat_ids = set()
         for mesh in self._meshes:
-            has_smooth |= mesh.smooth and len(mesh.v0) > 0
+            smooth = mesh.n0 is not None
+            has_smooth |= smooth and len(mesh.v0) > 0
             for i in range(len(mesh.v0)):
                 path = mesh.tex_paths[i] if i < len(mesh.tex_paths) else ""
                 tex_id = texreg.get_or_load(path)
@@ -349,6 +426,11 @@ class SceneBuilder:
                 tv2.append(mesh.v2[i])
                 tuv0.append(mesh.uv0[i][:2]); tuv1.append(mesh.uv1[i][:2])
                 tuv2.append(mesh.uv2[i][:2])
+                if smooth:
+                    tn0.append(mesh.n0[i]); tn1.append(mesh.n1[i])
+                    tn2.append(mesh.n2[i])
+                else:
+                    tn0.append(zero3); tn1.append(zero3); tn2.append(zero3)
                 tmat.append(mid); ttex.append(tex_id)
 
         n_tris = len(tv0)
@@ -373,8 +455,19 @@ class SceneBuilder:
                 uv0, uv1, uv2 = (_bf16_round(uv0), _bf16_round(uv1),
                                  _bf16_round(uv2))
             tri_mat = np.asarray(tmat, np.int32)
+            if has_smooth:
+                # per-vertex vn where given, the flat normal where a corner
+                # has none (a zero vector marks it absent)
+                vn0, vn1, vn2 = (
+                    np.where(np.linalg.norm(np.asarray(tn, np.float32), axis=1,
+                                            keepdims=True) < 1e-6,
+                             fn, np.asarray(tn, np.float32)).astype(np.float32)
+                    for tn in (tn0, tn1, tn2))
+            else:
+                vn0 = vn1 = vn2 = fn
         else:
             v0 = v1 = v2 = fn = np.zeros((1, 3), np.float32)
+            vn0 = vn1 = vn2 = fn
             uv0 = uv1 = uv2 = np.zeros((1, 2), np.float32)
             tri_mat = np.zeros(1, np.int32)
             tri_tex = -np.ones(1, np.int32)
@@ -385,6 +478,7 @@ class SceneBuilder:
             # triangles in BVH-leaf order (SBVH: one row per reference)
             perm = bvh.tri_indices
             v0, v1, v2, fn = v0[perm], v1[perm], v2[perm], fn[perm]
+            vn0, vn1, vn2 = vn0[perm], vn1[perm], vn2[perm]
             uv0, uv1, uv2 = uv0[perm], uv1[perm], uv2[perm]
             tri_mat, tri_tex = tri_mat[perm], tri_tex[perm]
             n_tris = len(perm)
@@ -395,6 +489,7 @@ class SceneBuilder:
         if n_tris:
             src = wide.src
             v0, v1, v2, fn = v0[src], v1[src], v2[src], fn[src]
+            vn0, vn1, vn2 = vn0[src], vn1[src], vn2[src]
             uv0, uv1, uv2 = uv0[src], uv1[src], uv2[src]
             tri_mat, tri_tex = tri_mat[src], tri_tex[src]
         bvh_pack, tri_pack, thr_pack = _pack_for_kernel(
@@ -404,6 +499,17 @@ class SceneBuilder:
             tri_pack[:n_tris, 13] = _pack_uv_bf16(uv0[:n_tris])
             tri_pack[:n_tris, 14] = _pack_uv_bf16(uv1[:n_tris])
             tri_pack[:n_tris, 15] = _pack_uv_bf16(uv2[:n_tris])
+        # smooth-shading table, row-aligned with tri_pack's 8-padding
+        tri_aux = np.zeros((tri_pack.shape[0], 16), np.float32)
+        tri_aux[:, 15] = -1.0
+        if n_tris:
+            tri_aux[:n_tris, 0:3] = vn0[:n_tris]
+            tri_aux[:n_tris, 3:6] = vn1[:n_tris]
+            tri_aux[:n_tris, 6:9] = vn2[:n_tris]
+            tri_aux[:n_tris, 9:11] = uv0[:n_tris]
+            tri_aux[:n_tris, 11:13] = uv1[:n_tris]
+            tri_aux[:n_tris, 13:15] = uv2[:n_tris]
+            tri_aux[:n_tris, 15] = tri_tex[:n_tris].astype(np.float32)
         m = max(n_tris, 1)
         tri_shade = np.zeros((m, 16), np.float32)
         tri_shade[:, 0:3] = fn[:m]
@@ -429,6 +535,26 @@ class SceneBuilder:
             sph_center = sph_center2 = np.full((1, 3), 1e30, np.float32)
             sph_radius = np.zeros(1, np.float32)
             sph_mat = np.zeros(1, np.int32)
+
+        # quads after the spheres; the derived quantities in float64,
+        # stored as f32
+        n_quads = len(self._quads)
+        if n_quads:
+            qq = np.asarray([e[0] for e in self._quads], np.float64)
+            qu = np.asarray([e[1] for e in self._quads], np.float64)
+            qv = np.asarray([e[2] for e in self._quads], np.float64)
+            qm = np.asarray([upsert(e[3]) for e in self._quads], np.int32)
+            cr = np.cross(qu, qv)
+            n2 = np.maximum((cr * cr).sum(axis=1, keepdims=True), 1e-30)
+            qn = cr / np.sqrt(n2)
+            qw = cr / n2
+            qd = (qn * qq).sum(axis=1)
+            qarea = np.sqrt(n2[:, 0])
+        else:
+            qq = qu = qv = qw = np.zeros((1, 3))
+            qn = np.array([[0.0, 0.0, 1.0]])
+            qd = qarea = np.zeros(1)
+            qm = np.zeros(1, np.int32)
 
         n_media = len(self._media)
         media = self._media or [(0, np.zeros(3, np.float32), 0.0,
@@ -465,11 +591,15 @@ class SceneBuilder:
                                         np.float32)
         mat_pack[:, 14] = np.asarray(mat_tex, np.float32)
 
-        # emissive spheres are the area lights
-        lights = [i for i in range(n_spheres)
-                  if mats[sph_mat[i]].kind == DIFFUSE_LIGHT
-                  and max(mats[sph_mat[i]].emissive) > 0]
-        light_idx = np.asarray(lights or [0], np.int32)
+        # emissive spheres, then emissive quads, are the area lights
+        def emits(mid):
+            return (mats[mid].kind == DIFFUSE_LIGHT
+                    and np.float32(max(mats[mid].emissive)) > 0)
+
+        lights = [(0, i) for i in range(n_spheres) if emits(sph_mat[i])]
+        lights += [(1, j) for j in range(n_quads) if emits(qm[j])]
+        light_idx = np.asarray([e[1] for e in lights] or [0], np.int32)
+        light_kind = np.asarray([e[0] for e in lights] or [0], np.int32)
 
         # the sky is registered after the triangle textures, so
         # has_image_tex counts triangle textures only
@@ -491,6 +621,7 @@ class SceneBuilder:
             bvh_pack=t(bvh_pack, np.float32), thr_pack=t(thr_pack, np.float32),
             tri_pack=t(tri_pack, np.float32),
             tri_shade=t(tri_shade, np.float32),
+            tri_aux=t(tri_aux, np.float32),
             mat_pack=t(mat_pack, np.float32), tex_pool=t(pool, np.float32),
             tex_w=t(tex_w, np.int32), tex_h=t(tex_h, np.int32),
             tex_off=t(tex_off, np.int32), sun_dir=t(sun_dir, np.float32),
@@ -498,7 +629,13 @@ class SceneBuilder:
             sph_center=t(sph_center, np.float32),
             sph_center2=t(sph_center2, np.float32),
             sph_radius=t(sph_radius, np.float32),
-            sph_mat=t(sph_mat, np.int32), light_idx=t(light_idx, np.int32),
+            sph_mat=t(sph_mat, np.int32),
+            quad_q=t(qq, np.float32), quad_u=t(qu, np.float32),
+            quad_v=t(qv, np.float32), quad_n=t(qn, np.float32),
+            quad_w=t(qw, np.float32), quad_d=t(qd, np.float32),
+            quad_area=t(qarea, np.float32), quad_mat=t(qm, np.int32),
+            light_idx=t(light_idx, np.int32),
+            light_kind=t(light_kind, np.int32),
             med_kind=t(med_kind, np.int32),
             med_center=t(med_center, np.float32),
             med_radius=t(med_radius, np.float32),
@@ -507,7 +644,7 @@ class SceneBuilder:
             med_albedo=t(med_albedo, np.float32),
             n_tris=n_tris, n_nodes=bvh.num_nodes,
             max_leaf=max(bvh.max_leaf_size, 1), n_textures=n_tex,
-            n_spheres=n_spheres, n_quads=0, n_lights=len(lights),
+            n_spheres=n_spheres, n_quads=n_quads, n_lights=len(lights),
             n_media=n_media, sun_enabled=bool(self.sun_enabled),
             has_image_tex=bool(n_tex_tri > 0),
             has_ptex=bool((mat_ptk != 0).any()),

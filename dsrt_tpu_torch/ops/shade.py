@@ -3,8 +3,8 @@
 `bounce_step` is one path segment for every lane:
 
 0. Russian roulette from depth >= rr_start_depth (1 draw).
-1. Closest hit in [hit_eps, hit_tmax]: triangles, spheres, then media
-   (one draw per medium).  A miss adds thr * sky (black without an
+1. Closest hit in [hit_eps, hit_tmax]: triangles (smooth-shaded on vn
+   scenes), spheres, quads, then media (one draw per medium).  A miss adds thr * sky (black without an
    environment map) and terminates.
    A medium hit scatters: thr *= medium albedo, new direction
    normalize(random_in_unit_sphere) (3 draws per attempt).
@@ -15,8 +15,9 @@
 5. lambertian: sun MIS with a shadow query from p + bias*n along
    Ldir = normalize(-sun_dir), weight pdf_brdf / (0.5 + 0.5 pdf_brdf).
 6. Without area lights: cosine-hemisphere continuation (2 draws),
-   thr *= albedo.  With sphere lights: a choose draw, then either the
-   light branch (light pick + 2 uniforms, pdf 0.5 pdf_light + 0.5
+   thr *= albedo.  With area lights (spheres, then quads, in the light
+   list): a choose draw, then either the light branch (light pick + 2
+   uniforms, whatever the light's kind; pdf 0.5 pdf_light + 0.5
    pdf_brdf) or the BRDF branch (2 draws, pdf 0.5 pdf_brdf) — the
    reference's asymmetric mixture — and thr *= albedo * cos/pi / pdf.
 
@@ -25,8 +26,8 @@ on any device (the plain versions of the megakernels, which must never
 launch a kernel); "kernel" goes through the split pipeline's traversal
 kernels (ops/traverse.py, their plain versions on CPU tensors), as JAX's
 `_vmapped_scene_hit` does on the TPU, and with exec_opts.OPTS.fused_sun
-on a scene of triangles only one `traverse_with_sun` launch answers both
-queries of a wave.
+on a scene of flat triangles only one `traverse_with_sun` launch answers
+both queries of a wave.
 
 Every draw is masked to the lanes that draw in the scalar control flow,
 so each pixel's LCG stream is the CUDA kernels', draw for draw.  With
@@ -55,7 +56,8 @@ from dsrt_tpu_torch.ops.trace import (scene_hit, scene_hit_flat,
 WALKS = ("plain", "kernel")
 
 # scene limits of the sphere kernel (ops/sphere_kernel.py), which the
-# plain renderer shares
+# plain renderer shares; the path kernel's are tighter
+# (ops/path_kernel.py)
 MAX_SPH = 16
 MAX_MED = 4
 MAX_LIGHTS = 8
@@ -94,17 +96,7 @@ def sample_cosine_hemisphere(n: V3, state, mask):
 
 
 def check_scope(scene, cfg) -> None:
-    """Raise for scenes outside the ported scope."""
-    if scene.n_quads:
-        raise NotImplementedError(
-            "quads are not ported yet (ROADMAP queue 1 item 1)")
-    if scene.has_smooth:
-        raise NotImplementedError(
-            "smooth (vn) shading is not ported yet (ROADMAP queue 1 item 1)")
-    if scene.has_image_tex and scene.n_spheres:
-        raise NotImplementedError(
-            "image textures in a scene with spheres are not ported yet "
-            "(ROADMAP queue 1 item 1)")
+    """Raise for scenes past the renderer's primitive limits."""
     if (scene.n_spheres > MAX_SPH or scene.n_media > MAX_MED
             or scene.n_lights > MAX_LIGHTS):
         raise NotImplementedError(
@@ -139,6 +131,50 @@ def sphere_light_from_uniforms(center: V3, radius, origin: V3, uz, uphi):
     return wi, pdf
 
 
+def quad_light_from_uniforms(q: V3, eu: V3, ev: V3, qn: V3, area,
+                             origin: V3, u1, u2):
+    """Uniform sample on a quad light, q + u1 eu + u2 ev, from two
+    uniforms: direction and its solid-angle pdf dist^2 / (|cos| area);
+    0 when the point is within 1e-3 or grazing (|cos| <= 1e-8)."""
+    p_l = V3(q.x + u1 * eu.x + u2 * ev.x, q.y + u1 * eu.y + u2 * ev.y,
+             q.z + u1 * eu.z + u2 * ev.z)
+    to_light = p_l - origin
+    dist2 = dot(to_light, to_light)
+    dist = sqrt(dist2)
+    ok = dist > 1e-3
+    one = torch.ones_like(dist)
+    zero = torch.zeros_like(dist)
+    wi = vwhere(ok, to_light * (1.0 / torch.where(ok, dist, one)),
+                V3(zero, zero, one))
+    cos_l = torch.abs(dot(wi, qn))
+    ok = ok & (cos_l > 1e-8) & (area > 0.0)
+    pdf = torch.where(ok, dist2 / torch.where(ok, cos_l * area, one), zero)
+    return wi, pdf
+
+
+def _rows(table: torch.Tensor, idx: torch.Tensor) -> V3:
+    r = table[idx]
+    return V3(r[..., 0], r[..., 1], r[..., 2])
+
+
+def light_sample(scene, k, p: V3, u1, u2):
+    """Direction and solid-angle pdf of light-list entry `k` from `p`:
+    a sphere light (at its shutter-time-0 centre) or a quad light."""
+    li = scene.light_idx[k].to(torch.int64)
+    sph = torch.clamp(li, 0, scene.sph_center.shape[0] - 1)
+    dir_l, pdf = sphere_light_from_uniforms(
+        _rows(scene.sph_center, sph), scene.sph_radius[sph], p, u1, u2)
+    if scene.n_quads == 0:
+        return dir_l, pdf
+    qi = torch.clamp(li, 0, scene.quad_q.shape[0] - 1)
+    dir_q, pdf_q = quad_light_from_uniforms(
+        _rows(scene.quad_q, qi), _rows(scene.quad_u, qi),
+        _rows(scene.quad_v, qi), _rows(scene.quad_n, qi),
+        scene.quad_area[qi], p, u1, u2)
+    is_q = scene.light_kind[k] == 1
+    return vwhere(is_q, dir_q, dir_l), torch.where(is_q, pdf_q, pdf)
+
+
 def bounce_step(scene, cfg, L: V3, thr: V3, ro: V3, rd: V3, state, alive,
                 rr_mask, sdir: V3, time=None, walk: str = "plain"):
     """One path segment for every lane, the scene queried by `walk` (see
@@ -164,7 +200,8 @@ def bounce_step(scene, cfg, L: V3, thr: V3, ro: V3, rd: V3, state, alive,
     nrays = alive.sum()
     fused = (walk == "kernel" and OPTS.fused_sun and scene.sun_enabled
              and scene.n_tris > 0 and scene.n_spheres == 0
-             and scene.n_media == 0)
+             and scene.n_quads == 0 and scene.n_media == 0
+             and not scene.has_smooth)
     query = scene_hit_flat if walk == "kernel" else scene_hit
     if fused:
         hit, sun_blocked = scene_hit_flat_sun(scene, ro, rd, t_min, t_max,
@@ -275,12 +312,8 @@ def bounce_step(scene, cfg, L: V3, thr: V3, ro: V3, rd: V3, state, alive,
     uk, state = rngmod.draw(state, light_m)
     k = torch.clamp_max((uk * scene.n_lights).to(torch.int64),
                         scene.n_lights - 1)
-    sph = scene.light_idx[k].to(torch.int64)
-    c = scene.sph_center[sph]
     u1, u2, state = rngmod.draw2(state, light_m)
-    dir_l, pdf_lc = sphere_light_from_uniforms(
-        V3(c[..., 0], c[..., 1], c[..., 2]), scene.sph_radius[sph], p, u1,
-        u2)
+    dir_l, pdf_lc = light_sample(scene, k, p, u1, u2)
     cos_li = torch.clamp_min(dot(dir_l, n), 0.0)
     l_ok = (pdf_lc > 0.0) & (cos_li > 0.0)
     n_l = const(scene.n_lights, dev)

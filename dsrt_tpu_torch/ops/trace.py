@@ -1,9 +1,10 @@
-"""Plain scene intersection: the per-ray stackless BVH walk, the sphere
-and constant-medium passes, and hit assembly.
+"""Plain scene intersection: the per-ray stackless BVH walk, the sphere,
+quad and constant-medium passes, and hit assembly.
 
 Port of dsrt_tpu/ops/trace.py:465-590 (`lane_traverse`), :652-683
-(`hit_from_kernel`), :258-319 (`sphere_pass`), :383-462
-(`_boundary_interval`, `media_pass`) and :639-649 (`scene_hit`).  Every
+(`hit_from_kernel`), :611-630 (smooth normals), :258-319 (`sphere_pass`),
+:322-380 (`quad_pass`), :383-462 (`_boundary_interval`, `media_pass`) and
+:603-649 (`scene_hit_flat_lane`, `scene_hit`).  Every
 ray walks the octant thread table on its own: octant o = (dx<0) +
 2(dy<0) + 4(dz<0); an entered interior node continues at thr[node, 2o]
 (the near child), anything else at thr[node, 2o+1] (the next node after
@@ -12,16 +13,22 @@ row order with `<=` acceptance against the running closest t, so ties go
 to the later row — the walk order, and hence the accepted triangle, is
 the reference's.  The CUDA kernels (csrc/walk.cuh) walk the same way.
 
-Spheres are tested one after another after the walk, accepting
-t <= closest, so a later sphere wins a tie; with a per-lane shutter time
-a moving centre is c0 + t (c2 - c0).  Each medium then draws once on
-every active lane of every query (shadow queries included) and scatters
-where the free path -log(u) / density ends inside its boundary interval
-and before the nearest surface.
+On smooth (vn) scenes the walk's winner takes the barycentric blend of
+its vertex normals (tri_aux), normalised by 1 / max(len, 1e-38), and its
+`front` from that shading normal.  Spheres, then quads, are tested one
+after another after the walk, accepting t <= closest, so a primitive
+wins a tie with a triangle and a later primitive a tie with an earlier
+one; with a per-lane shutter time a moving centre is c0 + t (c2 - c0).
+A quad hit is the plane hit (|n . d| >= 1e-8) with both coordinates
+alpha = w . (p x v), beta = w . (u x p) in [0, 1].  Each medium then
+draws once on every active lane of every query (shadow queries included)
+and scatters where the free path -log(u) / density ends inside its
+boundary interval and before the nearest surface.
 
 This is the plain version: rays are vectorised, and each step works on
 the rays still walking (compacted), so it runs on CPU or CUDA tensors.
-`walk_counter` counts its node visits and triangle tests, the work from
+`walk_counter` counts its node visits and triangle tests, and the
+sphere, quad and medium tests of the primitive passes: the work from
 which PERF.md bounds the kernels.
 
 `scene_hit_flat` and `scene_hit_flat_sun` (JAX :686-725) are the split
@@ -66,11 +73,14 @@ _COUNTS: dict | None = None
 
 @contextlib.contextmanager
 def walk_counter():
-    """Count the plain walk's node visits and triangle tests inside the
-    block: yields a dict {"visits", "tests"}; read each with int() (the
-    test count stays on the device until then)."""
+    """Count the plain walk's node visits and triangle tests, and the
+    sphere, quad and medium tests (one per active ray and primitive),
+    inside the block: yields a dict {"visits", "tests", "spheres",
+    "quads", "media"}; read each with int() (counts stay on the device
+    until then)."""
     global _COUNTS
-    prev, _COUNTS = _COUNTS, {"visits": 0, "tests": 0}
+    prev, _COUNTS = _COUNTS, {"visits": 0, "tests": 0, "spheres": 0,
+                              "quads": 0, "media": 0}
     try:
         yield _COUNTS
     finally:
@@ -235,6 +245,37 @@ def hit_from_kernel(scene, ro: V3, rd: V3, t, u, v, tri, t_max) -> Hit:
         medium=torch.full(t.shape, -1, dtype=torch.int64, device=t.device))
 
 
+def smooth_normals(scene, rd: V3, hit: Hit) -> Hit:
+    """On a smooth scene, the triangle hits' shading normal: the
+    barycentric blend of the vertex normals in tri_aux, normalised, then
+    face-flipped by its own `front`."""
+    if not scene.has_smooth:
+        return hit
+    trc = torch.clamp(hit.tri, 0, scene.tri_aux.shape[0] - 1)
+    ta = scene.tri_aux[trc]
+    u, v = hit.u, hit.v
+    w = 1.0 - u - v
+    nx = w * ta[..., 0] + u * ta[..., 3] + v * ta[..., 6]
+    ny = w * ta[..., 1] + u * ta[..., 4] + v * ta[..., 7]
+    nz = w * ta[..., 2] + u * ta[..., 5] + v * ta[..., 8]
+    nlen = sqrt(nx * nx + ny * ny + nz * nz)
+    ninv = torch.where(nlen > 0, 1.0 / torch.clamp_min(nlen, 1e-38),
+                       torch.zeros_like(nlen))
+    nx, ny, nz = nx * ninv, ny * ninv, nz * ninv
+    front = (rd.x * nx + rd.y * ny + rd.z * nz) < 0.0
+    sgn = torch.where(front, 1.0, -1.0).to(torch.float32)
+    m = hit.hit
+    return hit._replace(nx=torch.where(m, sgn * nx, hit.nx),
+                        ny=torch.where(m, sgn * ny, hit.ny),
+                        nz=torch.where(m, sgn * nz, hit.nz),
+                        front=torch.where(m, front, hit.front))
+
+
+def _count(key: str, active, n: int) -> None:
+    if _COUNTS is not None and n:
+        _COUNTS[key] = _COUNTS[key] + active.sum() * n
+
+
 def empty_hit(shape, t_max: float, device) -> Hit:
     """All-miss record (t = t_max) for scenes without triangles."""
     f0 = torch.zeros(shape, dtype=torch.float32, device=device)
@@ -259,6 +300,7 @@ def sphere_pass(scene, ro: V3, rd: V3, t_min: float, hit: Hit, active,
     """Sequential sphere loop after the walk (later spheres win ties)."""
     if scene.n_spheres == 0:
         return hit
+    _count("spheres", active, scene.n_spheres)
     dev = ro.x.device
     tmin = const(t_min, dev)
     with_time = time is not None and scene.has_moving
@@ -302,6 +344,50 @@ def sphere_pass(scene, ro: V3, rd: V3, t_min: float, hit: Hit, active,
     return hit
 
 
+def quad_pass(scene, ro: V3, rd: V3, t_min: float, hit: Hit,
+              active) -> Hit:
+    """Sequential quad loop after the sphere pass (later quads win ties);
+    alpha and beta land in u, v and tu, tv."""
+    if scene.n_quads == 0:
+        return hit
+    _count("quads", active, scene.n_quads)
+    tmin = const(t_min, ro.x.device)
+    closest = hit.t
+    for i in range(scene.n_quads):
+        qn = scene.quad_n[i]
+        denom = rd.x * qn[0] + rd.y * qn[1] + rd.z * qn[2]
+        ok = torch.abs(denom) >= 1e-8
+        t = (scene.quad_d[i] - (ro.x * qn[0] + ro.y * qn[1] + ro.z * qn[2])
+             ) / torch.where(ok, denom, torch.ones_like(denom))
+        ok = ok & (t >= tmin) & (t <= closest) & active
+        q = scene.quad_q[i]
+        px = ro.x + t * rd.x - q[0]
+        py = ro.y + t * rd.y - q[1]
+        pz = ro.z + t * rd.z - q[2]
+        ue, ve, w = scene.quad_u[i], scene.quad_v[i], scene.quad_w[i]
+        cx = py * ve[2] - pz * ve[1]
+        cy = pz * ve[0] - px * ve[2]
+        cz = px * ve[1] - py * ve[0]
+        alpha = w[0] * cx + w[1] * cy + w[2] * cz
+        cx = ue[1] * pz - ue[2] * py
+        cy = ue[2] * px - ue[0] * pz
+        cz = ue[0] * py - ue[1] * px
+        beta = w[0] * cx + w[1] * cy + w[2] * cz
+        ok = (ok & (alpha >= 0.0) & (alpha <= 1.0) & (beta >= 0.0)
+              & (beta <= 1.0))
+        front = denom < 0.0
+        sgn = torch.where(front, 1.0, -1.0).to(torch.float32)
+        hit = _update(hit, ok, t=t, nx=sgn * qn[0], ny=sgn * qn[1],
+                      nz=sgn * qn[2], front=front,
+                      mat=scene.quad_mat[i].to(torch.int64).expand(ok.shape),
+                      tex=torch.full_like(hit.tex, -1),
+                      tri=torch.full_like(hit.tri, -1), u=alpha, v=beta,
+                      tu=alpha, tv=beta,
+                      medium=torch.full_like(hit.medium, -1))
+        closest = torch.where(ok, t, closest)
+    return hit
+
+
 def boundary_interval(scene, m: int, ro: V3, rd: V3):
     """(has, t0, t1) of medium m's boundary along the rays, both roots
     of a sphere or the slab interval of a box, in an unbounded range."""
@@ -337,6 +423,7 @@ def media_pass(scene, ro: V3, rd: V3, t_min: float, hit: Hit, active,
     lane; the log is taken in float64 and rounded once."""
     if scene.n_media == 0:
         return hit, state
+    _count("media", active, scene.n_media)
     rlen = sqrt(dot(rd, rd))
     rlen_safe = torch.clamp_min(rlen, 1e-30)
     for i in range(scene.n_media):
@@ -360,26 +447,35 @@ def media_pass(scene, ro: V3, rd: V3, t_min: float, hit: Hit, active,
     return hit, state
 
 
+def _primitives(scene, ro: V3, rd: V3, t_min: float, hit: Hit, active,
+                state, time):
+    """After the walk: smooth normals, spheres, quads, then media."""
+    hit = smooth_normals(scene, rd, hit)
+    hit = sphere_pass(scene, ro, rd, t_min, hit, active, time=time)
+    hit = quad_pass(scene, ro, rd, t_min, hit, active)
+    return media_pass(scene, ro, rd, t_min, hit, active, state)
+
+
 def scene_hit(scene, ro: V3, rd: V3, t_min: float, t_max: float, active,
               state, any_hit: bool = False, time=None):
-    """Triangles (the walk), then spheres, then media; returns
+    """Triangles (the walk), then spheres, quads and media; returns
     (Hit, state).  `any_hit` ends the triangle walk at its first hit;
-    the sphere and medium passes always run in full."""
+    the primitive and medium passes always run in full."""
     if scene.n_tris > 0:
         t, u, v, tri = lane_traverse(scene, ro, rd, t_min, t_max, active,
                                      any_hit=any_hit)
         hit = hit_from_kernel(scene, ro, rd, t, u, v, tri, t_max)
     else:
         hit = empty_hit(ro.x.shape, t_max, ro.x.device)
-    hit = sphere_pass(scene, ro, rd, t_min, hit, active, time=time)
-    return media_pass(scene, ro, rd, t_min, hit, active, state)
+    return _primitives(scene, ro, rd, t_min, hit, active, state, time)
 
 
 def scene_hit_flat(scene, ro: V3, rd: V3, t_min: float, t_max: float,
                    active, state, any_hit: bool = False, time=None):
     """scene_hit with the triangle walk through ops/traverse.traverse (the
-    `dsrt_traverse` kernel on CUDA tensors), then the sphere and medium
-    passes and hit assembly; returns (Hit, state)."""
+    `dsrt_traverse` kernel on CUDA tensors; it returns the same
+    (t, u, v, tri), so smooth normals are blended on its result), then
+    the primitive and medium passes; returns (Hit, state)."""
     from dsrt_tpu_torch.ops.traverse import traverse
     if scene.n_tris > 0:
         t, u, v, tri = traverse(scene, ro, rd, active, t_min, t_max,
@@ -387,15 +483,14 @@ def scene_hit_flat(scene, ro: V3, rd: V3, t_min: float, t_max: float,
         hit = hit_from_kernel(scene, ro, rd, t, u, v, tri, t_max)
     else:
         hit = empty_hit(ro.x.shape, t_max, ro.x.device)
-    hit = sphere_pass(scene, ro, rd, t_min, hit, active, time=time)
-    return media_pass(scene, ro, rd, t_min, hit, active, state)
+    return _primitives(scene, ro, rd, t_min, hit, active, state, time)
 
 
 def scene_hit_flat_sun(scene, ro: V3, rd: V3, t_min: float, t_max: float,
                        active, sun_ldir: V3, shadow_bias: float):
     """Closest hit and the sun-shadow test in one traversal launch
-    (`dsrt_traverse_sun` on CUDA tensors) for scenes of triangles only;
-    returns (Hit, blocked), `blocked` valid on hit lanes."""
+    (`dsrt_traverse_sun` on CUDA tensors) for scenes of flat triangles
+    only; returns (Hit, blocked), `blocked` valid on hit lanes."""
     from dsrt_tpu_torch.ops.traverse import traverse_with_sun
     t, u, v, tri, blocked = traverse_with_sun(
         scene, ro, rd, active, t_min, t_max, sun_ldir, shadow_bias)

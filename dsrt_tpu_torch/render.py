@@ -13,9 +13,11 @@ walk through the traversal kernels on CUDA (ops/traverse.py).
 lays them out, 1024-lane packets of 32x32-pixel tiles, so pool sizes,
 drain caps and compaction match JAX lane for lane.
 `render_frame_fused` runs one of the two megakernels on a CUDA scene (and
-its plain version on a CPU scene): scenes with triangles go to the path
-kernel (ops/path_kernel.py), sphere-only scenes to the sphere kernel
-(ops/sphere_kernel.py); a CUDA scene that neither covers raises.  A frame
+its plain version on a CPU scene): scenes with triangles or quads go to
+the path kernel (ops/path_kernel.py: with up to 12 spheres, 24 quads, 8
+area lights and 4 media, smooth or flat, any sky, texture, lens and
+shutter), sphere-only scenes to the sphere kernel (ops/sphere_kernel.py);
+a scene that neither covers raises.  A frame
 above FUSED_DISPATCH_RAYS primary rays renders as ceil(spp/chunk) chunks
 whose LCG streams are salted with i * 0x9E3779B9 (chunk 0 unsalted),
 which defines the pixels of frames such as 800x450 at 1000 spp.

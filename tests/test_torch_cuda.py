@@ -206,3 +206,66 @@ def test_split_frames_go_through_the_traverse_kernels(cuda, scene_cpu,
     assert launched["dsrt_traverse" if fused_sun else "dsrt_traverse_sun"] == 0
     np.testing.assert_array_equal(got, want)
     assert n == n_cpu
+
+
+def _feature_case(name, tex_path):
+    from dsrt_tpu_torch.models import feature_scenes as fs
+    from dsrt_tpu_torch.models.materials import Material
+    from dsrt_tpu_torch.models.scene import SceneBuilder
+    fn, frm, at, vfov, extra = fs.CASES[name]
+    scene = fn(SceneBuilder, Material, tex_path=tex_path).build(device="cpu")
+    cam = make_camera(frm, at, vfov=vfov, width=64, height=36,
+                      aperture=extra.get("aperture", 0.0), device="cpu")
+    return scene, cam, RenderConfig(width=64, height=36, spp=2, max_depth=8,
+                                    **extra)
+
+
+@pytest.mark.parametrize("name", ["sphere_mix", "quad_light", "sphere_light",
+                                  "cornell", "mesh_media", "mesh_media_light",
+                                  "ptex", "dof", "motion_blur", "env",
+                                  "smooth", "textured_spheres"])
+def test_path_kernel_whole_scope_matches_plain_version(cuda, name, tmp_path):
+    """Every feature case of the path kernel's wider scope: identical
+    accumulators and ray counts against the plain version on the card
+    (transcendentals in double rounded once on both sides, no
+    contraction)."""
+    tex = str(tmp_path / "panel.png")
+    write_panel_texture(tex, size=16)
+    scene_cpu, cam, cfg = _feature_case(name, tex)
+    scene, cam_d = scene_cpu.to(cuda), cam.to(cuda)
+    before = path_kernel.LAUNCHES["dsrt_path_render"]
+    acc, n = path_kernel.path_render(scene, cam_d, cfg)
+    torch.cuda.synchronize()
+    assert path_kernel.LAUNCHES["dsrt_path_render"] == before + 1
+    want, n_plain = path_kernel.path_render_plain(scene, cam_d, cfg, cfg.spp)
+    assert torch.equal(acc, want)
+    assert int(n) == int(n_plain)
+    assert (want > 0).float().mean() > 0.05
+
+
+def test_mixed_scenes_go_through_the_path_kernel(cuda):
+    """render_frame_fused on CUDA mixed scenes launches the path kernel and
+    no traversal kernel; a CUDA scene past the kernel's bounds raises."""
+    from dsrt_tpu_torch.models import feature_scenes as fs
+    from dsrt_tpu_torch.models.materials import Material
+    from dsrt_tpu_torch.models.scene import SceneBuilder
+    cfg = RenderConfig(width=64, height=36, spp=2, max_depth=8)
+    cam = make_camera((0, 0.8, 2.6), (0, 0.3, -1), vfov=50, width=64,
+                      height=36, device=cuda)
+    path_kernel.reset_launches()
+    traverse.reset_launches()
+    for scene in (presets.mixed_scene(device=cuda),
+                  presets.cornell_box_scene(device=cuda)):
+        img, n = render_frame_fused(scene, cam, cfg, with_count=True)
+        assert img.shape == (36, 64, 3) and n >= 64 * 36 * 2
+    assert path_kernel.LAUNCHES["dsrt_path_render"] == 2
+    assert sum(traverse.LAUNCHES.values()) == 0
+    b = fs.sphere_mix(SceneBuilder, Material)
+    for i in range(path_kernel.MAX_SPH):
+        b.add_sphere((0.1 * i, 2.0, -3.0), 0.05, Material.lambertian())
+    over = b.build(device=cuda)
+    with pytest.raises(NotImplementedError):
+        path_kernel.path_render(over, cam, cfg)
+    with pytest.raises(NotImplementedError):
+        render_frame_fused(over, cam, cfg)
+    assert path_kernel.LAUNCHES["dsrt_path_render"] == 2

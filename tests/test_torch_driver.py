@@ -78,7 +78,83 @@ def test_driver_resume_and_ppm(tmp_path):
 
 
 @pytest.mark.parametrize("flag", ["--mode", "--shard", "--adaptive",
-                                  "--env_map", "--smooth", "--upscale"])
+                                  "--hosts", "--profile", "--upscale"])
 def test_driver_refuses_unported_flags(flag):
     with pytest.raises(SystemExit):
         driver.build_parser().parse_args([flag, "1"])
+
+
+def _write_smooth_obj(path):
+    """A faceted sphere of radius 20 at the origin with its vertex normals
+    (v / vn / f lines), the smooth mesh of models/feature_scenes.py."""
+    from dsrt_tpu_torch.models.feature_scenes import uv_sphere_mesh
+    from dsrt_tpu_torch.models.materials import Material
+    m = uv_sphere_mesh(Material, (0.0, 0.0, 0.0), 20.0)
+    lines = []
+    for i in range(len(m.v0)):
+        for v in (m.v0[i], m.v1[i], m.v2[i]):
+            lines.append("v %.9g %.9g %.9g" % tuple(v))
+        for n in (m.n0[i], m.n1[i], m.n2[i]):
+            lines.append("vn %.9g %.9g %.9g" % tuple(n))
+        k = 3 * i
+        lines.append(f"f {k + 1}//{k + 1} {k + 2}//{k + 2} {k + 3}//{k + 3}")
+    path.write_text("\n".join(lines) + "\n")
+
+
+def _driver_pair(tmp_path, extra):
+    """Frames of the port's driver (--device cpu) and of the reference
+    driver's parity mode with the same flags."""
+    poses = _poses(tmp_path)
+    port_out, ref_out = tmp_path / "port", tmp_path / "ref"
+    assert driver.main(["--input_txt", poses, "--output_dir", str(port_out),
+                        "--device", "cpu", *COMMON, *extra]) == 0
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+    proc = subprocess.run(
+        [sys.executable, "-m", "dsrt_tpu.driver", "--mode", "parity",
+         "--input_txt", poses, "--output_dir", str(ref_out), *COMMON,
+         *extra], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    frames = sorted(os.listdir(port_out))
+    assert frames == sorted(os.listdir(ref_out)) and len(frames) == 2
+    return [(read_png(str(port_out / f)), read_png(str(ref_out / f)))
+            for f in frames]
+
+
+def _assert_frames_match(pairs):
+    for got, want in pairs:
+        assert got.shape == want.shape == (36, 48, 3)
+        diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
+        assert (diff.max(axis=-1) == 0).mean() >= 0.99
+        assert diff.mean() <= 0.5
+
+
+def test_driver_env_map_matches_reference(tmp_path):
+    """--env_map / --env_rotation / --env_scale: the sky fills the frame
+    around the station, as in the reference driver."""
+    from dsrt_tpu_torch.models.feature_scenes import env_array
+    from dsrt_tpu_torch.utils.image_io import write_png
+    sky = str(tmp_path / "sky.png")
+    write_png(sky, (np.clip(env_array(), 0.0, 1.0) * 255).astype(np.uint8))
+    pairs = _driver_pair(tmp_path, ["--env_map", sky, "--env_rotation", "30",
+                                    "--env_scale", "1.5"])
+    _assert_frames_match(pairs)
+    assert min((got > 0).all(-1).mean() for got, _ in pairs) > 0.5
+
+
+def test_driver_smooth_obj_matches_reference(tmp_path):
+    """--obj with --smooth: the OBJ's vn normals shade the mesh, as in
+    the reference driver; without --smooth the frame differs."""
+    obj = tmp_path / "ball.obj"
+    _write_smooth_obj(obj)
+    pairs = _driver_pair(tmp_path, ["--obj", str(obj), "--smooth"])
+    _assert_frames_match(pairs)
+    flat = tmp_path / "flat"
+    assert driver.main(["--input_txt", str(tmp_path / "poses.txt"),
+                        "--output_dir", str(flat), "--device", "cpu",
+                        *COMMON, "--obj", str(obj)]) == 0
+    got = read_png(str(flat / "frame_0000.png"))
+    assert (got > 0).mean() > 0.05
+    assert (got != pairs[0][0]).any()

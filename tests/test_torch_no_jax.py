@@ -55,6 +55,16 @@ def test_render_in_subprocess_leaves_jax_unimported():
         "device='cpu'), cam, RenderConfig(width=8, height=6, spp=2, "
         "max_depth=3), spp_batch=2)\n"
         "assert img.shape == (6, 8, 3)\n"
+        "from dsrt_tpu_torch.models import feature_scenes, presets\n"
+        "from dsrt_tpu_torch.models.scene import SceneBuilder\n"
+        "from dsrt_tpu_torch import Material\n"
+        "img = render_frame_fused(presets.cornell_box_scene(device='cpu'), "
+        "cam, RenderConfig(width=8, height=6, spp=1, max_depth=3))\n"
+        "s = feature_scenes.smooth(SceneBuilder, Material).build("
+        "device='cpu')\n"
+        "img = render_frame_fused(s, cam, RenderConfig(width=8, height=6, "
+        "spp=1, max_depth=3))\n"
+        "assert img.shape == (6, 8, 3)\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('dsrt_tpu', 'jax', 'jaxlib', 'bench')]\n"

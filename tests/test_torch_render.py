@@ -53,7 +53,8 @@ def assert_images_match(got, want):
 
 def reference_ray_count(js, jc, cfg):
     """Exact ray count of the reference's sample loop (render.py
-    _render_lanes with trace_paths(count_rays=True))."""
+    _render_lanes with trace_paths(count_rays=True)), lens and shutter
+    draws included."""
     px, py, valid, _ = lane_layout(cfg.width, cfg.height)
     spp = cfg.resolved_spp()
 
@@ -67,9 +68,13 @@ def reference_ray_count(js, jc, cfg):
             jx = (jnp.float32(s) + jxu) / jnp.float32(spp)
             jy = (jnp.float32(s) + jyu) / jnp.float32(spp)
             ro, rd, state = camera_rays(cam, px, py, jx, jy, state, valid,
-                                        False)
+                                        cfg.aperture > 0)
+            time = None
+            if cfg.time1 > cfg.time0:
+                ut, state = jrng.draw(state, valid)
+                time = cfg.time0 + ut * (cfg.time1 - cfg.time0)
             _, state, n = jtrace_paths(scene, cfg, ro, rd, state, valid,
-                                       count_rays=True)
+                                       count_rays=True, time=time)
             total = total + n
         return total
 

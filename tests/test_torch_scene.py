@@ -208,12 +208,16 @@ def test_sphere_scene_contents():
 
 
 def test_unported_primitives_raise():
+    """Quads and boxes were the builder's last unported primitives; they
+    now build (six quads a box), and the Scene keeps the quad tables."""
     b = SceneBuilder()
     m = Material.lambertian()
-    for call in (lambda: b.add_quad((0, 0, 0), (1, 0, 0), (0, 1, 0), m),
-                 lambda: b.add_box((0, 0, 0), (1, 1, 1), m)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    b.add_quad((0, 0, 0), (1, 0, 0), (0, 1, 0), m)
+    b.add_box((0, 0, 0), (1, 1, 1), m)
+    s = b.build(device="cpu")
+    assert s.n_quads == 7 and s.n_tris == 0
+    assert s.quad_q.shape == (7, 3) and s.quad_mat.tolist() == [0] * 7
+    assert not hasattr(SceneBuilder, "_queued")
 
 
 def test_with_sun_swaps_only_the_sun():

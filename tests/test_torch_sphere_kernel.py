@@ -122,13 +122,13 @@ def test_frames_route_to_the_kernel_that_covers_them():
     assert fused_kind(rt, CFG) == "sphere"
     tri = tpresets.single_triangle_scene(device="cpu")
     assert fused_kind(tri, CFG) == "tri"
-    # spheres among triangles: neither kernel yet
+    # spheres among triangles: the path kernel
     mixed = _mixed_scene()
-    assert fused_kind(mixed, CFG) is None
+    assert fused_kind(mixed, CFG) == "tri"
     cam = make_camera(*LOOK, vfov=50, width=32, height=16,
                       device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        render_frame_fused(mixed, cam, CFG)
+    np.testing.assert_array_equal(render_frame_fused(mixed, cam, CFG),
+                                  render_frame(mixed, cam, CFG))
     # over the kernel's sphere limit
     b = SceneBuilder(seed=1337)
     for i in range(sk.MAX_SPH + 1):

@@ -285,11 +285,22 @@ def test_bounce_step_takes_a_known_walk():
 
 
 def test_driver_modes(tmp_path, capsys):
+    from dsrt_tpu_torch.models.materials import Material
+    from dsrt_tpu_torch.models.scene import SceneBuilder
     ts, _, _, _ = _scenes("mixed")
     tri = single_triangle_scene(device="cpu")
     cfg = RenderConfig(**CFG)
-    assert driver.resolve_mode("auto", ts, cfg) == "wavefront"
-    assert driver.resolve_mode("fused", ts, cfg) == "wavefront"
+    # the mixed stand-in goes to the path kernel; a triangle scene with
+    # more spheres than the path kernel takes, to the wavefront
+    assert driver.resolve_mode("auto", ts, cfg) == "fused"
+    b = SceneBuilder(seed=1337)
+    b.add_triangle((-1.0, -1.0, -2.0), (1.0, -1.0, -2.0), (0.0, 1.0, -2.0),
+                   Material.lambertian())
+    for i in range(13):
+        b.add_sphere((0.1 * i, 0.0, -1.0), 0.05, Material.lambertian())
+    many = b.build(device="cpu")
+    assert driver.resolve_mode("auto", many, cfg) == "wavefront"
+    assert driver.resolve_mode("fused", many, cfg) == "wavefront"
     assert "falling back" in capsys.readouterr().out
     assert driver.resolve_mode("auto", tri, cfg) == "fused"
     for mode in ("parity", "wavefront", "queue"):
