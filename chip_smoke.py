@@ -20,8 +20,14 @@ sky, procedural textures, smooth normals, lens, shutter) at 64x36 through
 the kernel against the plain version on CPU copies, and three full-size
 mixed frames (the mixed stand-in, `mixed_scene`, the volumetric mesh)
 through `render_frame_fused`, which must launch the path kernel and no
-traversal kernel.  Each phase prints one line; any failure raises, so the
-exit code is nonzero.  The last two lines are the kernels' JSON summary and
+traversal kernel.  The path kernel is held bit for bit against its plain
+version on the card (accumulators and ray counts) in phases 4, 5, 13 and
+14; phase 5 does so on the flagship frame at its launched shape (800x450,
+32 spp) and bounds it from that frame's counted work, and the design
+phase after it prints the kernel's time there, node visits per query of
+the binary and the 8-ary walk, and the tail share of a stamped copy of
+the kernel (dsrt_tpu_torch/tools/path_probe.py).  Each phase prints one
+line; any failure raises, so the exit code is nonzero.  The last two lines are the kernels' JSON summary and
 {"ok": true, "device": {...}}.  Needs one CUDA device; imports no JAX and
 nothing of the JAX package.
 """
@@ -263,13 +269,20 @@ def sphere_phases(dev) -> dict:
                          + MEDIUM_FLOPS * scene.n_media),
             table_bytes(scene, ("mat_pack", "tex_pool")) + 247 * 4
             + acc_p1.numel() * 4)
+        # the same at the launched shape, from the frame's exact rays
+        frame_bound, frame_bound_by = roofline_ms(
+            rays * (SPHERE_FLOPS * scene.n_spheres
+                    + MEDIUM_FLOPS * scene.n_media),
+            table_bytes(scene, ("mat_pack", "tex_pool")) + 247 * 4
+            + acc_p1.numel() * 4)
         phase("8 sphere frame",
               f"{name} {w}x{h} spp{spp} depth50: frame {secs:.4f} s (reps "
               f"{', '.join(f'{t:.4f}' for t in times)}), wrapper call "
               f"(CUDA events) {k_full:.3f} ms, kernel on the device "
               f"(profiler) {k_dev:.3f} ms, {rays} rays exact, "
               f"{rays / secs / 1e6:.2f} Mrays/s on the frame wall, "
-              f"{rays / k_dev / 1e3:.1f} on the kernel; spp1 wrapper calls: "
+              f"{rays / k_dev / 1e3:.1f} on the kernel, bound "
+              f"{frame_bound:.4f} ms by {frame_bound_by}; spp1 wrapper calls: "
               f"kernel {k1:.3f} ms, plain {p1:.1f} ms, max |d| {err1:.3g}, "
               f"rays {int(n_k1)} vs {int(n_p1)}; launches {launches}")
         require(torch.equal(acc_k1, acc_p1) and int(n_k1) == int(n_p1),
@@ -285,7 +298,12 @@ def sphere_phases(dev) -> dict:
             "frame_device_ms": k_dev, "mrays_per_s": rays / secs / 1e6,
             "launches_by_frame": dict(
                 (entry or {}).get("launches_by_frame", {}),
-                **{name: launches})}
+                **{name: launches}),
+            "frames": dict((entry or {}).get("frames", {}), **{name: {
+                "shape": f"{w}x{h} spp{spp} max_depth50",
+                "wrapper_ms": k_full, "device_ms": k_dev,
+                "bound_ms": frame_bound, "bound_by": frame_bound_by,
+                "launches": launches}})}
     entry["launches"] = sum(entry["launches_by_frame"].values())
     return entry
 
@@ -372,6 +390,7 @@ def split_phases(dev, poses) -> dict:
     require(stand.n_tris > 50000 and mixed.n_spheres == 3, "split scenes")
 
     # 9. the traversal kernels against their plain versions, 2^20 rays
+    tv.reset_launches()
     n = 1 << 20
     ro, rd = random_rays(n, 11, dev)
     act = torch.from_numpy(np.random.default_rng(12).random(n) > 0.1).to(dev)
@@ -437,6 +456,7 @@ def split_phases(dev, poses) -> dict:
                                                       .abs().max()),
                                     bound_ms=bound, bound_by=by)
 
+    micro = dict(tv.LAUNCHES)
     # 10. the wave loops on the card against the same loops on CPU copies
     cfg_s = RenderConfig(width=64, height=36, spp=4, max_depth=12)
     cam_s = point_camera_at(SUNLIT_CAM, vfov=cfg_s.vfov, width=64,
@@ -603,6 +623,7 @@ def split_phases(dev, poses) -> dict:
             "ms": e["ms"], "plain_ms": e["plain_ms"],
             "bound_ms": e["bound_ms"], "bound_by": e["bound_by"],
             "library_ms": None, "shape": "2^20 rays, 51k-triangle stand-in",
+            "launches_microbenchmark": micro[name],
             "frames": {k: {"frame_ms": v["secs"] * 1e3, "rays": v["rays"],
                            "mrays_per_s": v["rays"] / v["secs"] / 1e6,
                            "kernel_device_ms": v["kernel_ms"],
@@ -710,11 +731,14 @@ def mixed_phases(dev, regs: dict) -> dict:
               f"{max_abs:.3g}, rays {n_k} vs {n_c} (tolerance: >= 98% "
               f"identical, mean <= 1 u8, rays within 1%); accumulators "
               f"identical to the plain version on the card on {exact:.4%} "
-              f"of pixels, rays {int(n_d)}; lit "
+              f"of pixels, rays {int(n_d)} (tolerance: identical); lit "
               f"{float((acc_c > 0).float().mean()):.2f}")
         require(same >= 0.98 and mean_d <= 1.0
                 and abs(n_k - n_c) <= 0.01 * n_c,
                 f"path kernel disagrees with the plain version on {name}")
+        require(torch.equal(acc_k, acc_d) and n_k == int(n_d),
+                f"path kernel and its plain version on the card differ on "
+                f"{name}")
         require(float((acc_c > 0).float().mean()) > 0.01,
                 f"{name} frame is dark")
 
@@ -742,20 +766,32 @@ def mixed_phases(dev, regs: dict) -> dict:
         p1 = event_ms(lambda: path_kernel.path_render_plain(scene, cam, cfg1,
                                                             1), 1)
         acc_k1, n_k1 = path_kernel.path_render(scene, cam, cfg1)
+        acc_p1, n_p1 = path_kernel.path_render_plain(scene, cam, cfg1, 1)
+        # the work of the launched shape (spp 32), counted at spp 8 and
+        # taken 4 times; the plain version's time at spp 8
+        cfg8 = dataclasses.replace(cfg, spp=8)
+        acc_k8, n_k8 = path_kernel.path_render(scene, cam, cfg8)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
         with walk_counter() as wc:
-            acc_p1, n_p1 = path_kernel.path_render_plain(scene, cam, cfg1, 1)
+            start.record()
+            acc_p8, n_p8 = path_kernel.path_render_plain(scene, cam, cfg8, 8)
+            stop.record()
+            torch.cuda.synchronize()
+        p8 = start.elapsed_time(stop)
         counts = {k: int(v) for k, v in wc.items()}
-        flops = (counts["visits"] * SLAB_FLOPS + counts["tests"] * MT_FLOPS
-                 + counts["spheres"] * SPHERE_FLOPS
-                 + counts["quads"] * QUAD_FLOPS
-                 + counts["media"] * MEDIUM_FLOPS)
+        flops = 4 * (counts["visits"] * SLAB_FLOPS
+                     + counts["tests"] * MT_FLOPS
+                     + counts["spheres"] * SPHERE_FLOPS
+                     + counts["quads"] * QUAD_FLOPS
+                     + counts["media"] * MEDIUM_FLOPS)
         bound, bound_by = roofline_ms(
-            flops, table_bytes(scene, ("bvh_pack", "thr_pack", "tri_pack",
-                                       "tri_shade", "tri_aux", "mat_pack",
-                                       "tex_pool"))
-            + path_kernel.PARAM_LEN * 4 + acc_p1.numel() * 4)
+            flops, table_bytes(scene, ("wide_pack", "tri_pack", "tri_shade",
+                                       "tri_aux", "mat_pack", "tex_pool"))
+            + path_kernel.PARAM_LEN * 4 + acc_p8.numel() * 4)
         err1 = float((acc_k1 - acc_p1).abs().max())
         same1 = float((acc_k1 == acc_p1).all(dim=-1).float().mean())
+        same8 = float((acc_k8 == acc_p8).all(dim=-1).float().mean())
         inst = path_kernel.instance_of(scene, cfg)
         phase("14 mixed frame",
               f"{name} {w}x{h} spp{spp} depth50 ({scene.n_tris} triangles, "
@@ -766,23 +802,25 @@ def mixed_phases(dev, regs: dict) -> dict:
               f"frame {secs:.4f} s (reps "
               f"{', '.join(f'{t:.4f}' for t in times)}), {rays} rays exact, "
               f"{rays / secs / 1e6:.2f} Mrays/s, launches {launched} (4 "
-              f"frames); kernel alone {k_full:.3f} ms; spp1: kernel "
+              f"frames); kernel alone {k_full:.3f} ms, bound {bound:.4f} ms "
+              f"by {bound_by} (spp 8 work x 4: {counts}); spp8: plain "
+              f"{p8:.1f} ms, accumulators identical on {same8:.4%} of "
+              f"pixels, rays {int(n_k8)} vs {int(n_p8)}; spp1: kernel "
               f"{k1:.3f} ms, plain {p1:.1f} ms, accumulators identical on "
               f"{same1:.4%} of pixels, max |d| {err1:.3g}, rays {int(n_k1)} "
-              f"vs {int(n_p1)}; bound {bound:.4f} ms by {bound_by} "
-              f"({counts})")
-        require(same1 >= 0.98
-                and abs(int(n_k1) - int(n_p1)) <= 0.01 * int(n_p1),
+              f"vs {int(n_p1)} (tolerance: identical)")
+        require(torch.equal(acc_k1, acc_p1) and int(n_k1) == int(n_p1)
+                and torch.equal(acc_k8, acc_p8) and int(n_k8) == int(n_p8),
                 f"kernel and plain disagree at the {name} frame")
         frames[name] = {
             "shape": f"{w}x{h} spp{spp} max_depth50", "instance": inst,
             "registers": regs.get(f"path_render_kernel<{inst}>"),
             "launches": launched["dsrt_path_render"],
             "frame_ms": secs * 1e3, "frame_kernel_ms": k_full, "rays": rays,
-            "mrays_per_s": rays / secs / 1e6, "ms_spp1": k1,
-            "plain_ms_spp1": p1, "max_abs_err_spp1": err1,
-            "bound_ms_spp1": bound, "bound_by": bound_by,
-            "work_spp1": counts}
+            "mrays_per_s": rays / secs / 1e6, "bound_ms": bound,
+            "bound_by": bound_by, "bound_work": "spp 8 x 4",
+            "work_spp8": counts, "plain_ms_spp8": p8, "ms_spp1": k1,
+            "plain_ms_spp1": p1, "max_abs_err_spp1": err1}
     return frames
 
 
@@ -797,6 +835,7 @@ def main() -> int:
     from dsrt_tpu_torch.ops import build, path_kernel
     from dsrt_tpu_torch.ops.camera import point_camera_at
     from dsrt_tpu_torch.ops.trace import lane_traverse, walk_counter
+    from dsrt_tpu_torch.ops.traverse import LAUNCHES as traverse_launches
     from dsrt_tpu_torch.ops.traverse import (MT_FLOPS, SLAB_FLOPS,
                                              roofline_ms, traverse)
     from dsrt_tpu_torch.render import (render_frame, render_frame_fused,
@@ -820,9 +859,14 @@ def main() -> int:
     t0 = time.perf_counter()
     build.load()
     regs = register_counts(build.build_info["log"])
+    blocks = {m: path_kernel.occupancy(m) for m in range(16)}
     phase("2 build", f"{time.perf_counter() - t0:.1f} s "
                      f"(nvcc {build.build_info['seconds']:.1f} s); registers "
-                     + ", ".join(f"{k} {v}" for k, v in sorted(regs.items())))
+                     + ", ".join(f"{k} {v}" for k, v in sorted(regs.items()))
+                     + "; path kernel blocks of 128 threads resident per SM "
+                     + ", ".join(f"<{m}> {b}" for m, b in blocks.items()))
+    require(min(blocks.values()) >= 1, "a path kernel instance does not fit "
+                                       "an SM")
 
     with tempfile.TemporaryDirectory() as td:
         tex = os.path.join(td, "panel.png")
@@ -839,6 +883,7 @@ def main() -> int:
     # 3. closest hit: kernel vs the plain walk, 2^20 rays, exact
     ro, rd = random_rays(1 << 20, 3, dev)
     act = torch.ones(ro.x.shape, dtype=torch.bool, device=dev)
+    micro3 = traverse_launches["dsrt_traverse"]
     t_k = event_ms(lambda: traverse(scene, ro, rd, act, 1e-3, 1e9), 10)
     t_p = event_ms(lambda: lane_traverse(scene, ro, rd, 1e-3, 1e9, act), 1)
     hit_k = traverse(scene, ro, rd, act, 1e-3, 1e9)
@@ -850,6 +895,7 @@ def main() -> int:
                            f"(t,u,v,tri) (tolerance: exact); kernel "
                            f"{t_k:.3f} ms, plain {t_p:.1f} ms")
     require(mism == 0 and hits > 0, "closest-hit kernel disagrees")
+    micro3 = traverse_launches["dsrt_traverse"] - micro3
 
     # 4. frame check: the path kernel vs the plain renderer on CPU copies
     cfg_s = RenderConfig(width=64, height=36, spp=2, max_depth=8)
@@ -860,6 +906,9 @@ def main() -> int:
     img_p, n_p = render_frame(scene_cpu, cam_s, cfg_s, with_count=True)
     acc_p, _ = path_kernel.path_render_plain(scene_cpu, cam_s, cfg_s,
                                              cfg_s.spp)
+    acc_d, n_d = path_kernel.path_render_plain(scene, cam_s.to(dev), cfg_s,
+                                               cfg_s.spp)
+    exact = float((acc_k == acc_d).all(-1).float().mean())
     diff = np.abs(img_k.astype(int) - img_p.astype(int))
     same = float((diff.max(-1) == 0).mean())
     mean_d = float(diff.mean())
@@ -869,8 +918,13 @@ def main() -> int:
                            f" mean |d| {mean_d:.4f} u8, max |d| {diff.max()}"
                            f" u8, accum max |d| {max_abs:.3g}; rays kernel "
                            f"{n_k} plain {n_p} (tolerance: >= 98% identical,"
-                           f" mean <= 1 u8, rays within 1%)")
+                           f" mean <= 1 u8, rays within 1%); accumulators "
+                           f"identical to the plain version on the card on "
+                           f"{exact:.4%} of pixels, rays {int(n_d)} "
+                           f"(tolerance: identical)")
     require(same >= 0.98 and mean_d <= 1.0, "path kernel disagrees")
+    require(torch.equal(acc_k, acc_d) and n_k == int(n_d),
+            "path kernel and its plain version on the card differ")
     require(abs(n_k - n_p) <= 0.01 * n_p, "ray counts disagree")
     require((img_k > 0).mean() > 0.2, "sunlit frame is dark")
 
@@ -888,9 +942,12 @@ def main() -> int:
     cam = point_camera_at(BENCH_CAM, vfov=cfg.vfov, width=800, height=450,
                           device=dev)
     path_kernel.reset_launches()
+    walks = sum(traverse_launches.values())
     secs, times, (img, rays) = wall_time(
         lambda: render_frame_fused(scene, cam, cfg, with_count=True), 3)
     launches = dict(path_kernel.LAUNCHES)
+    require(sum(traverse_launches.values()) == walks,
+            "the flagship frame launched a traversal kernel")
     phase("5 flagship", f"800x450 spp32 depth50: {secs:.4f} s (reps "
                         f"{', '.join(f'{t:.4f}' for t in times)}), {rays} "
                         f"rays exact, {rays / secs / 1e6:.2f} Mrays/s, "
@@ -899,40 +956,95 @@ def main() -> int:
     require(img.shape == (450, 800, 3) and img.max() > 0, "flagship image")
     require(rays >= 800 * 450 * 32, "ray count below one per sample")
 
-    # the kernel alone, and kernel vs plain at the flagship frame, 1 spp
+    # the kernel alone at the launched shape (one launch a frame: 800x450
+    # x 32 spp is under the dispatch budget) against the plain version on
+    # the card, bit for bit; the bound from the work the plain version
+    # counts on these inputs (binary walk visits and triangle tests, the
+    # least work of the two walks), the tables the kernel reads in, the
+    # accumulators out
     k32 = event_ms(lambda: path_kernel.path_render(scene, cam, cfg), 5)
+    acc_k32, n_k32 = path_kernel.path_render(scene, cam, cfg)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    with walk_counter() as wc:
+        start.record()
+        acc_p32, n_p32 = path_kernel.path_render_plain(scene, cam, cfg, 32)
+        stop.record()
+        torch.cuda.synchronize()
+    p32 = start.elapsed_time(stop)
+    kernel_tables = ("wide_pack", "tri_pack", "tri_shade", "mat_pack",
+                     "tex_pool")
+    bound, bound_by = roofline_ms(
+        int(wc["visits"]) * SLAB_FLOPS + int(wc["tests"]) * MT_FLOPS,
+        table_bytes(scene, kernel_tables) + acc_p32.numel() * 4)
+    err32 = float((acc_k32 - acc_p32).abs().max())
+    same32 = float((acc_k32 == acc_p32).all(dim=-1).float().mean())
+    # the 1-spp probe of earlier runs
     cfg1 = dataclasses.replace(cfg, spp=1)
     k1 = event_ms(lambda: path_kernel.path_render(scene, cam, cfg1), 10)
     p1 = event_ms(lambda: path_kernel.path_render_plain(scene, cam, cfg1, 1),
                   1)
     acc_k1, n_k1 = path_kernel.path_render(scene, cam, cfg1)
-    with walk_counter() as wc:
+    with walk_counter() as wc1:
         acc_p1, n_p1 = path_kernel.path_render_plain(scene, cam, cfg1, 1)
-    # bound: the walk's node visits and triangle tests on these inputs
-    # (counted by the plain version), tables in, accum out
-    bound, bound_by = roofline_ms(
-        int(wc["visits"]) * SLAB_FLOPS + int(wc["tests"]) * MT_FLOPS,
-        table_bytes(scene, ("bvh_pack", "thr_pack", "tri_pack", "tri_shade",
-                            "mat_pack", "tex_pool")) + acc_p1.numel() * 4)
-    err1 = float((acc_k1 - acc_p1).abs().max())
-    same1 = float((acc_k1 == acc_p1).all(dim=-1).float().mean())
-    phase("5 times", f"kernel alone 800x450 spp32: {k32:.3f} ms "
-                     f"({rays / k32 / 1e3:.1f} Mrays/s); 800x450 spp1 "
-                     f"depth50: kernel {k1:.3f} ms, plain {p1:.1f} ms; "
-                     f"accumulators identical on {same1:.4%} of pixels, "
-                     f"max |d| {err1:.3g}, rays {int(n_k1)} vs {int(n_p1)}")
-    require(same1 >= 0.98
-            and abs(int(n_k1) - int(n_p1)) <= 0.01 * int(n_p1),
+    bound1, _ = roofline_ms(
+        int(wc1["visits"]) * SLAB_FLOPS + int(wc1["tests"]) * MT_FLOPS,
+        table_bytes(scene, kernel_tables) + acc_p1.numel() * 4)
+    phase("5 times", f"800x450 spp32 depth50: kernel {k32:.3f} ms "
+                     f"({int(n_k32) / k32 / 1e3:.1f} Mrays/s), plain "
+                     f"{p32:.1f} ms, accumulators identical on {same32:.4%} "
+                     f"of pixels, max |d| {err32:.3g}, rays {int(n_k32)} vs "
+                     f"{int(n_p32)} (tolerance: identical); bound "
+                     f"{bound:.4f} ms by {bound_by} ({int(wc['visits'])} "
+                     f"visits, {int(wc['tests'])} tests); spp1: kernel "
+                     f"{k1:.3f} ms, plain {p1:.1f} ms, bound {bound1:.4f} ms, "
+                     f"rays {int(n_k1)} vs {int(n_p1)}")
+    require(torch.equal(acc_k32, acc_p32) and int(n_k32) == int(n_p32)
+            and torch.equal(acc_k1, acc_p1) and int(n_k1) == int(n_p1),
             "kernel and plain disagree at the flagship frame")
     kernels["dsrt_path_render"] = {
         "name": "dsrt_path_render", "route": "cuda",
         "source": "dsrt_tpu_torch/csrc/path_kernel.cuh",
         "replaces": "dsrt_tpu/ops/pallas_path.py:477",
         "launches": launches["dsrt_path_render"],
-        "max_abs_err": err1, "ms": k1, "plain_ms": p1, "bound_ms": bound,
+        "max_abs_err": err32, "ms": k32, "plain_ms": p32, "bound_ms": bound,
         "bound_by": bound_by, "library_ms": None,
-        "shape": "800x450 spp1 max_depth50", "frame_ms": secs * 1e3,
-        "frame_kernel_ms": k32, "mrays_per_s": rays / secs / 1e6}
+        "shape": "800x450 spp32 max_depth50", "frame_ms": secs * 1e3,
+        "frame_kernel_ms": k32, "mrays_per_s": rays / secs / 1e6,
+        "ms_spp1": k1, "plain_ms_spp1": p1, "bound_ms_spp1": bound1,
+        "work_spp32": {k: int(v) for k, v in wc.items()}}
+
+    # the design: the kernel's time at the flagship frame, node visits per
+    # query of the binary and the 8-ary walk (the queries of a small plain
+    # frame on CPU copies, replayed through wide_walk_plain), and the
+    # share of the kernel's window in which fewer than all SMs had work
+    # (one launch of a stamped copy)
+    from dsrt_tpu_torch.tools import path_probe
+    tail = path_probe.tail_share(scene, cam, cfg)
+    cfg_v = RenderConfig(width=64, height=36, spp=2, max_depth=50)
+    visits = {}
+    for view, frm in (("flagship", BENCH_CAM), ("sunlit", SUNLIT_CAM)):
+        visits[view] = path_probe.visits_per_query(
+            scene_cpu, point_camera_at(frm, vfov=cfg_v.vfov, width=64,
+                                       height=36, device="cpu"), cfg_v)
+        require(visits[view]["wide_tests"] == visits[view]["binary_tests"],
+                "the wide walk tested other triangles than the binary walk")
+    phase("5 design", f"flagship 800x450 spp32: kernel {k32:.3f} ms; node "
+                      f"visits per query (64x36 spp2 depth50, CPU copies) "
+                      + "; ".join(f"{v} view {c['queries']} queries: binary "
+                                  f"{c['binary_per_query']:.2f}, wide "
+                                  f"{c['wide_per_query']:.2f}"
+                                  for v, c in visits.items())
+                      + f"; tail share {tail['tail_share']:.2%} of a "
+                        f"{tail['window_ms']:.3f} ms window (stamped copy), "
+                        f"SM busy mean {tail['sm_busy_mean']:.2%}, min "
+                        f"{tail['sm_busy_min']:.2%}, {tail['sms_seen']} of "
+                        f"{tail['sms']} SMs; instance 0: "
+                        f"{regs.get('path_render_kernel<0>', '?')} registers, "
+                        f"{blocks[0]} blocks of 128 resident per SM")
+    kernels["dsrt_path_render"].update(
+        registers=regs.get("path_render_kernel<0>"),
+        blocks_per_sm=blocks[0], tail=tail, visits_per_query=visits)
 
     # 6. the driver over two poses
     poses = os.path.join(OUT, "poses.txt")
@@ -959,8 +1071,13 @@ def main() -> int:
     kernels["dsrt_sphere_render"] = sphere_phases(dev)
     kernels.update(split_phases(dev, poses))
     mixed = mixed_phases(dev, regs)
+    # phase 3's launches are microbenchmark launches too; phases 5 and 14
+    # (the megakernels' frames, --mode auto's path) required that no
+    # traversal kernel was launched
+    kernels["dsrt_traverse"]["launches_microbenchmark"] += micro3
+    for walk_kernel in ("dsrt_traverse", "dsrt_traverse_sun"):
+        kernels[walk_kernel]["launches_main_path"] = 0
     entry = kernels["dsrt_path_render"]
-    entry["registers"] = regs.get("path_render_kernel<0>")
     entry["frames"] = mixed
     entry["launches_by_frame"] = dict(
         {"flagship": entry["launches"]},

@@ -1,8 +1,9 @@
 // The path kernel's instances for scenes without spheres and quads
-// (template bit K_PRIMS clear; instance 0 is the flagship's) and the C
-// entry point `dsrt_path_render`, which picks the instance that matches
-// the scene.  The kernel itself and its notes are in path_kernel.cuh;
-// the instances with spheres and quads are in path_kernel_prims.cu.
+// (template bit K_PRIMS clear; instance 0 is the flagship's), the C entry
+// point `dsrt_path_render`, which picks the instance that matches the
+// scene, and `dsrt_path_occupancy`, an instance's resident blocks per SM.
+// The kernel itself and its notes are in path_kernel.cuh; the instances
+// with spheres and quads are in path_kernel_prims.cu.
 //
 // Plain PyTorch version: dsrt_tpu_torch/ops/path_kernel.py
 // (path_render_plain) over ops/shade.py, ops/trace.py, ops/textures.py.
@@ -12,14 +13,17 @@
 namespace dsrt {
 namespace path {
 
+static const KernelFn plain_geometry[8] = {
+    path_render_kernel<0>,  path_render_kernel<2>,  path_render_kernel<4>,
+    path_render_kernel<6>,  path_render_kernel<8>,  path_render_kernel<10>,
+    path_render_kernel<12>, path_render_kernel<14>};
+
 int launch_plain_geometry(unsigned m, const PathArgs& a, const float* params, cudaStream_t s) {
-  static const KernelFn table[8] = {
-      path_render_kernel<0>,  path_render_kernel<2>,  path_render_kernel<4>,
-      path_render_kernel<6>,  path_render_kernel<8>,  path_render_kernel<10>,
-      path_render_kernel<12>, path_render_kernel<14>};
   if ((m & K_PRIMS) || m >= (unsigned)N_INSTANCES) return (int)cudaErrorInvalidValue;
-  return launch_instance(table[m >> 1], m, a, params, s);
+  return launch_instance(plain_geometry[m >> 1], m, a, params, s);
 }
+
+KernelFn plain_geometry_kernel(unsigned m) { return plain_geometry[m >> 1]; }
 
 // the instance a scene needs: its template bits from the counts and flags
 unsigned required_instance(const PathArgs& a) {
@@ -36,19 +40,21 @@ unsigned required_instance(const PathArgs& a) {
 
 extern "C" {
 
-int dsrt_path_render(const float* bvh, const float* thr, const float* tri,
-                     const float* tri_shade, const float* tri_aux, const float* mat,
-                     const float* pool, const int* tex_w, const int* tex_h, const int* tex_off,
-                     const float* cam, const float* sun, const float* params, float* accum,
-                     unsigned long long* nrays, int width, int height, int cam_w, int cam_h,
-                     int spp, int salt, int seed, int max_depth, int rr_start, float rr_max_p,
-                     float t_min, float t_max, int end, int tri_rows, int n_textures, int pool_n,
+// `counters` is two zeroed 64-bit words: the ray count, then the tile
+// counter (its low 32 bits)
+int dsrt_path_render(const float* wide, const float* tri, const float* tri_shade,
+                     const float* tri_aux, const float* mat, const float* pool, const int* tex_w,
+                     const int* tex_h, const int* tex_off, const float* cam, const float* sun,
+                     const float* params, float* accum, unsigned long long* counters, int width,
+                     int height, int cam_w, int cam_h, int spp, int salt, int seed, int max_depth,
+                     int rr_start, float rr_max_p, float t_min, float t_max, int n_wide,
+                     int tri_rows, int n_textures, int pool_n,
                      int n_sph, int n_quads, int n_lights, int n_med, int env, int flags,
                      int instance, float env_rot, float env_scale, float time0, float dt,
                      void* stream) {
   using namespace dsrt::path;
   PathArgs a;
-  a.tb = dsrt::Tables{bvh, thr, tri, end, tri_rows};
+  a.tb = dsrt::WideTables{wide, tri, n_wide, tri_rows};
   a.tri_shade = tri_shade;
   a.tri_aux = tri_aux;
   a.mat = mat;
@@ -59,7 +65,8 @@ int dsrt_path_render(const float* bvh, const float* thr, const float* tri,
   a.cam = cam;
   a.sun = sun;
   a.accum = accum;
-  a.nrays = nrays;
+  a.nrays = counters;
+  a.next_tile = reinterpret_cast<unsigned*>(counters + 1);
   a.width = width;
   a.height = height;
   a.cam_w = cam_w;
@@ -92,6 +99,18 @@ int dsrt_path_render(const float* bvh, const float* thr, const float* tri,
   cudaStream_t s = (cudaStream_t)stream;
   return (m & K_PRIMS) ? launch_primitives(m, a, params, s)
                        : launch_plain_geometry(m, a, params, s);
+}
+
+// resident blocks per SM of kernel instance `instance`, or a negative
+// CUDA error code
+int dsrt_path_occupancy(int instance) {
+  using namespace dsrt::path;
+  if (instance < 0 || instance >= N_INSTANCES) return -(int)cudaErrorInvalidValue;
+  const unsigned m = (unsigned)instance;
+  int n = 0;
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, (m & K_PRIMS) ? primitives_kernel(m) : plain_geometry_kernel(m), 32 * WARPS, 0);
+  return e == cudaSuccess ? n : -(int)e;
 }
 
 const char* dsrt_error_string(int code) {

@@ -13,7 +13,8 @@
 // It computes what that kernel computes in the shape of the CUDA
 // reference renderer: ONE THREAD PER PIXEL runs every sample and every
 // bounce with per-thread control flow, drawing the per-pixel LCG stream
-// (x + y*W) ^ seed ^ salt exactly as the plain renderer's masked lanes do:
+// (x + y*W) ^ seed ^ salt exactly as the plain renderer's masked lanes do
+// (the launch and the walk are described below):
 //   - the jitter pair, then the lens-disk draws (aperture on), then one
 //     shutter-time draw (shutter open), held for the whole path;
 //   - one draw per medium on every intersection query, shadow queries
@@ -39,6 +40,18 @@
 // What bounds it on the H100: the tree walk is a chain of dependent
 // global loads, so a thread is latency-bound, and neighbouring pixels
 // diverge in depth, material and walk length, so warps run partly idle.
+// What the design does about it:
+//   - the walk is the exact 8-ary walk of wide_walk.cuh over `wide_pack`
+//     (one dependent link per wide node instead of one per binary node);
+//   - the launch is persistent: as many blocks of WARPS warps as fit on
+//     the card at once, and each warp takes the next TILE_W x TILE_H
+//     pixel tile from a global counter until the frame is done, so the
+//     SMs stay full to the end of the frame (a grid of fixed blocks left
+//     the blocks over the station to run alone at the end) and a warp's
+//     pixels form a compact 8x4 patch, which diverges less than a 16x2
+//     strip.  A pixel still runs all its samples in order in one thread,
+//     so its draws and its float sums are the plain version's; ray counts
+//     are integers and sum exactly in any order.
 // The primitive records every thread loops over sit in __constant__
 // memory (a warp's uniform read is one broadcast), copied there from the
 // scene's packed parameter buffer on the launch's stream; the tables are
@@ -54,7 +67,7 @@
 
 #include "common.cuh"
 #include "prims.cuh"
-#include "walk.cuh"
+#include "wide_walk.cuh"
 
 namespace dsrt {
 namespace path {
@@ -64,8 +77,10 @@ constexpr int METAL = 1;
 constexpr int DIELECTRIC = 2;
 constexpr int DIFFUSE_LIGHT = 3;
 
-constexpr int BLOCK_W = 16;
-constexpr int BLOCK_H = 8;
+constexpr int WARPS = 4;  // warps a block
+constexpr int TILE_W = 8;  // a warp's pixel tile
+constexpr int TILE_H = 4;
+static_assert(TILE_W * TILE_H == 32, "one pixel a lane");
 
 constexpr int MAX_SPH = 12;
 constexpr int MAX_QUADS = 24;
@@ -91,7 +106,7 @@ struct Params {
 static_assert(sizeof(Params) == 604 * sizeof(float), "parameter layout");
 
 struct PathArgs {
-  Tables tb;
+  WideTables tb;
   const float* tri_shade;
   const float* tri_aux;
   const float* mat;
@@ -103,6 +118,7 @@ struct PathArgs {
   const float* sun;  // Ldir (3), radiance (3), shadow bias
   float* accum;      // [height][width][3]
   unsigned long long* nrays;
+  unsigned* next_tile;  // zero at launch: the tile counter
   int width, height;  // pixel grid
   int cam_w, cam_h;   // camera raster (seeding and raygen)
   int spp;
@@ -139,7 +155,7 @@ __device__ __forceinline__ QueryHit closest_hit(const PathArgs& a, f3 ro, f3 rd,
                                                 uint32_t& st) {
   constexpr bool kPrims = (M & K_PRIMS) != 0;
   constexpr bool kMedia = (M & K_MEDIA) != 0;
-  WalkHit w = walk<false>(a.tb, ro, rd, a.t_min, a.t_max);
+  WalkHit w = wide_walk<false>(a.tb, ro, rd, a.t_min, a.t_max);
   QueryHit h{w.tri >= 0, w.t, w.tri, w.u, w.v, mk(0.0f, 0.0f, 0.0f), false, 0, -1};
   float av = 0.0f;
   if constexpr (kPrims || kMedia) av = dot(rd, rd);
@@ -198,7 +214,7 @@ __device__ __forceinline__ bool sun_blocked(const PathArgs& a, f3 o, f3 d, float
     hit = spheres_block(P.sph, a.n_sph, (a.flags & MOVING) != 0, o, d, av, tm, a.t_min, a.t_max) ||
           quads_block(P.quad, a.n_quads, o, d, a.t_min, a.t_max);
   }
-  if (!hit) hit = walk<true>(a.tb, o, d, a.t_min, a.t_max).tri >= 0;
+  if (!hit) hit = wide_walk<true>(a.tb, o, d, a.t_min, a.t_max).tri >= 0;
   if constexpr (kMedia) hit = media_block(P.med, a.n_med, o, d, av, a.t_min, a.t_max, hit, st);
   return hit;
 }
@@ -390,57 +406,74 @@ __device__ f3 trace_path(const PathArgs& a, f3 ro, f3 rd, float tm, uint32_t& st
   return mk(clamp01(L.x), clamp01(L.y), clamp01(L.z));
 }
 
+// every sample of pixel (x, y); returns the sum of clamp01(L)
 template <unsigned M>
-__global__ void __launch_bounds__(BLOCK_W* BLOCK_H) path_render_kernel(const PathArgs a) {
+__device__ __forceinline__ f3 render_pixel(const PathArgs& a, int x, int y,
+                                           unsigned long long& rays) {
   constexpr bool kExtra = (M & K_EXTRA) != 0;
-  const int x = blockIdx.x * BLOCK_W + threadIdx.x;
-  const int y = blockIdx.y * BLOCK_H + threadIdx.y;
-  unsigned rays = 0;
-  if (x < a.width && y < a.height) {
-    uint32_t st = ((uint32_t)x + (uint32_t)y * (uint32_t)a.cam_w) ^ a.seed ^ a.salt;
-    const float* cam = a.cam;
-    const float spp_f = (float)a.spp;
-    const float wm1 = (float)(a.cam_w - 1), hm1 = (float)(a.cam_h - 1);
-    f3 acc = mk(0.0f, 0.0f, 0.0f);
-    for (int s = 0; s < a.spp; ++s) {
-      float jxu = draw(st);
-      float jyu = draw(st);
-      float sf = (float)s;
-      float jx = (sf + jxu) / spp_f;
-      float jy = (sf + jyu) / spp_f;
-      float u = ((float)x + jx) / wm1;
-      float v = ((float)y + jy) / hm1;
-      f3 ro = mk(cam[0], cam[1], cam[2]);
-      f3 rd = mk(cam[3] + u * cam[6] + v * cam[9] - cam[0],
-                 cam[4] + u * cam[7] + v * cam[10] - cam[1],
-                 cam[5] + u * cam[8] + v * cam[11] - cam[2]);
-      float tm = 0.0f;
-      if constexpr (kExtra) {
-        if (a.flags & APERTURE) {  // thin lens: offset on the camera's (u, v) basis
-          float dx, dy;
-          random_in_unit_disk(st, dx, dy);
-          float lrx = cam[18] * dx;
-          float lry = cam[18] * dy;
-          f3 off = mk(cam[12] * lrx + cam[15] * lry, cam[13] * lrx + cam[16] * lry,
-                      cam[14] * lrx + cam[17] * lry);
-          ro = add(ro, off);
-          rd = sub(rd, off);
-        }
-        if (a.flags & SHUTTER) tm = a.time0 + draw(st) * a.dt;
+  uint32_t st = ((uint32_t)x + (uint32_t)y * (uint32_t)a.cam_w) ^ a.seed ^ a.salt;
+  const float* cam = a.cam;
+  const float spp_f = (float)a.spp;
+  const float wm1 = (float)(a.cam_w - 1), hm1 = (float)(a.cam_h - 1);
+  f3 acc = mk(0.0f, 0.0f, 0.0f);
+  for (int s = 0; s < a.spp; ++s) {
+    float jxu = draw(st);
+    float jyu = draw(st);
+    float sf = (float)s;
+    float jx = (sf + jxu) / spp_f;
+    float jy = (sf + jyu) / spp_f;
+    float u = ((float)x + jx) / wm1;
+    float v = ((float)y + jy) / hm1;
+    f3 ro = mk(cam[0], cam[1], cam[2]);
+    f3 rd = mk(cam[3] + u * cam[6] + v * cam[9] - cam[0],
+               cam[4] + u * cam[7] + v * cam[10] - cam[1],
+               cam[5] + u * cam[8] + v * cam[11] - cam[2]);
+    float tm = 0.0f;
+    if constexpr (kExtra) {
+      if (a.flags & APERTURE) {  // thin lens: offset on the camera's (u, v) basis
+        float dx, dy;
+        random_in_unit_disk(st, dx, dy);
+        float lrx = cam[18] * dx;
+        float lry = cam[18] * dy;
+        f3 off = mk(cam[12] * lrx + cam[15] * lry, cam[13] * lrx + cam[16] * lry,
+                    cam[14] * lrx + cam[17] * lry);
+        ro = add(ro, off);
+        rd = sub(rd, off);
       }
-      acc = add(acc, trace_path<M>(a, ro, rd, tm, st, rays));
+      if (a.flags & SHUTTER) tm = a.time0 + draw(st) * a.dt;
     }
-    float* out = a.accum + ((size_t)y * a.width + x) * 3;
-    out[0] = acc.x;
-    out[1] = acc.y;
-    out[2] = acc.z;
+    unsigned r = 0;
+    acc = add(acc, trace_path<M>(a, ro, rd, tm, st, r));
+    rays += r;
   }
-  __shared__ unsigned long long block_rays;
-  if (threadIdx.x == 0 && threadIdx.y == 0) block_rays = 0ull;
-  __syncthreads();
-  if (rays) atomicAdd(&block_rays, (unsigned long long)rays);
-  __syncthreads();
-  if (threadIdx.x == 0 && threadIdx.y == 0) atomicAdd(a.nrays, block_rays);
+  return acc;
+}
+
+// persistent warps: each takes the next tile until the frame is done
+template <unsigned M>
+__global__ void __launch_bounds__(32 * WARPS) path_render_kernel(const PathArgs a) {
+  const int lane = threadIdx.x & 31;
+  const int tiles_x = (a.width + TILE_W - 1) / TILE_W;
+  const int n_tiles = tiles_x * ((a.height + TILE_H - 1) / TILE_H);
+  unsigned long long rays = 0;
+  for (;;) {
+    unsigned tile = 0;
+    if (lane == 0) tile = atomicAdd(a.next_tile, 1u);
+    tile = __shfl_sync(0xffffffffu, tile, 0);
+    if (tile >= (unsigned)n_tiles) break;
+    const int x = (int)(tile % (unsigned)tiles_x) * TILE_W + lane % TILE_W;
+    const int y = (int)(tile / (unsigned)tiles_x) * TILE_H + lane / TILE_W;
+    if (x < a.width && y < a.height) {
+      const f3 acc = render_pixel<M>(a, x, y, rays);
+      float* out = a.accum + ((size_t)y * a.width + x) * 3;
+      out[0] = acc.x;
+      out[1] = acc.y;
+      out[2] = acc.z;
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) rays += __shfl_down_sync(0xffffffffu, rays, off);
+  if (lane == 0 && rays) atomicAdd(a.nrays, rays);
 }
 
 using KernelFn = void (*)(PathArgs);
@@ -454,8 +487,15 @@ int launch_instance(KernelFn fn, unsigned m, const PathArgs& a, const float* par
         cudaMemcpyToSymbolAsync(P, params, sizeof(Params), 0, cudaMemcpyDeviceToDevice, s);
     if (err != cudaSuccess) return (int)err;
   }
-  dim3 block(BLOCK_W, BLOCK_H);
-  dim3 grid((a.width + BLOCK_W - 1) / BLOCK_W, (a.height + BLOCK_H - 1) / BLOCK_H);
+  int per_sm = 0, sms = 0, dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, 32 * WARPS, 0);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  dim3 block(32 * WARPS);
+  dim3 grid(sms * per_sm);
   PathArgs copy = a;
   void* args[] = {&copy};
   cudaError_t err = cudaLaunchKernel((const void*)fn, grid, block, args, 0, s);
@@ -469,6 +509,9 @@ int launch_instance(KernelFn fn, unsigned m, const PathArgs& a, const float* par
 // spheres and quads
 int launch_plain_geometry(unsigned m, const PathArgs& a, const float* params, cudaStream_t s);
 int launch_primitives(unsigned m, const PathArgs& a, const float* params, cudaStream_t s);
+// instance m's kernel (m < N_INSTANCES, its K_PRIMS bit picking the unit)
+KernelFn plain_geometry_kernel(unsigned m);
+KernelFn primitives_kernel(unsigned m);
 
 }  // namespace path
 }  // namespace dsrt

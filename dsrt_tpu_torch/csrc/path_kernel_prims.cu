@@ -8,14 +8,17 @@
 namespace dsrt {
 namespace path {
 
+static const KernelFn primitive_instances[8] = {
+    path_render_kernel<1>,  path_render_kernel<3>,  path_render_kernel<5>,
+    path_render_kernel<7>,  path_render_kernel<9>,  path_render_kernel<11>,
+    path_render_kernel<13>, path_render_kernel<15>};
+
 int launch_primitives(unsigned m, const PathArgs& a, const float* params, cudaStream_t s) {
-  static const KernelFn table[8] = {
-      path_render_kernel<1>,  path_render_kernel<3>,  path_render_kernel<5>,
-      path_render_kernel<7>,  path_render_kernel<9>,  path_render_kernel<11>,
-      path_render_kernel<13>, path_render_kernel<15>};
   if (!(m & K_PRIMS) || m >= (unsigned)N_INSTANCES) return (int)cudaErrorInvalidValue;
-  return launch_instance(table[m >> 1], m, a, params, s);
+  return launch_instance(primitive_instances[m >> 1], m, a, params, s);
 }
+
+KernelFn primitives_kernel(unsigned m) { return primitive_instances[m >> 1]; }
 
 }  // namespace path
 }  // namespace dsrt

@@ -8,6 +8,9 @@ packing), emitting only the main-path tables:
 - `bvh_pack` f32[Bp,16]: node box (0-5), skip, leaf offset, leaf count;
 - `thr_pack` f32[Bp,16]: the octant thread table, lanes [2o, 2o+1] =
   (enter, skip) for ray-direction octant o;
+- `wide_pack` f32[Nw,72] (the port's own, `pack_wide`): the same tree as
+  an 8-ary table whose leaf children are the binary leaves, with each
+  octant's binary visit order, for the path kernel's wide walk;
 - `tri_pack` f32[Tp,16]: v0, e1, e2, material, face normal, and the
   per-vertex UVs as bf16 pairs in lanes 13-15 (bit patterns — never do
   float arithmetic on those lanes);
@@ -45,9 +48,9 @@ from dsrt_tpu_torch.models.materials import (DEFAULT_MATERIAL, DIFFUSE_LIGHT,
                                              Material)
 from dsrt_tpu_torch.models.textures import TextureRegistry
 
-# (field name, dtype) of every table the port keeps, in the reference
-# Scene's field names
-TABLES = (("bvh_pack", np.float32), ("thr_pack", np.float32),
+# (field name, dtype) of every table the port shares with the reference
+# Scene, in its field names
+REF_TABLES = (("bvh_pack", np.float32), ("thr_pack", np.float32),
           ("tri_pack", np.float32), ("tri_shade", np.float32),
           ("tri_aux", np.float32), ("mat_pack", np.float32), ("tex_pool", np.float32),
           ("tex_w", np.int32), ("tex_h", np.int32), ("tex_off", np.int32),
@@ -63,6 +66,10 @@ TABLES = (("bvh_pack", np.float32), ("thr_pack", np.float32),
           ("med_radius", np.float32), ("med_min", np.float32),
           ("med_max", np.float32), ("med_neg_inv_density", np.float32),
           ("med_albedo", np.float32))
+# ... and every table the port keeps: the reference's, then the 8-ary
+# table the path kernel walks (`pack_wide`, derived from bvh_pack and
+# thr_pack)
+TABLES = REF_TABLES + (("wide_pack", np.float32),)
 INT_META = ("n_tris", "n_nodes", "max_leaf", "n_textures", "n_spheres",
             "n_quads", "n_lights", "n_media", "env_tex", "seed")
 BOOL_META = ("sun_enabled", "has_image_tex", "has_ptex", "has_smooth",
@@ -108,6 +115,7 @@ class Scene:
     med_max: torch.Tensor        # f32[M,3]
     med_neg_inv_density: torch.Tensor  # f32[M] = -1 / density
     med_albedo: torch.Tensor     # f32[M,3]
+    wide_pack: torch.Tensor      # f32[Nw, WIDE_ROW]: see pack_wide
     n_tris: int
     n_nodes: int                 # binary BVH nodes = the walk's end marker
     max_leaf: int
@@ -125,6 +133,7 @@ class Scene:
     env_rotation: float          # radians
     env_scale: float
     seed: int
+    wide_stack: int              # the wide walk's worst stack height
     # what the kernel wrappers derive from the tables once per scene
     # (ops/path_kernel.py); shared by the copies `with_sun` makes
     cache: dict = dataclasses.field(default_factory=dict, compare=False,
@@ -153,13 +162,16 @@ def scene_from_reference(ref, device=None) -> Scene:
     read with np.asarray, so a JAX scene converts without importing JAX
     here.  On the card unless `device` says otherwise."""
     device = resolve_device(device)
-    tables = {name: torch.as_tensor(np.array(np.asarray(getattr(ref, name)),
-                                             dtype), device=device)
-              for name, dtype in TABLES}
+    host = {name: np.array(np.asarray(getattr(ref, name)), dtype)
+            for name, dtype in REF_TABLES}
+    wide, _, stack = pack_wide(host["bvh_pack"], host["thr_pack"],
+                               int(ref.n_nodes))
+    tables = {name: torch.as_tensor(a, device=device)
+              for name, a in dict(host, wide_pack=wide).items()}
     meta = {name: int(getattr(ref, name)) for name in INT_META}
     meta.update({name: bool(getattr(ref, name)) for name in BOOL_META})
     meta.update({name: float(getattr(ref, name)) for name in FLOAT_META})
-    return Scene(**tables, **meta)
+    return Scene(**tables, **meta, wide_stack=stack)
 
 
 def _pack_for_kernel(bvh: BVH, v0: np.ndarray, v1: np.ndarray,
@@ -223,6 +235,114 @@ def _pack_for_kernel(bvh: BVH, v0: np.ndarray, v1: np.ndarray,
         tpack[:t, 9] = tri_mat.astype(np.float32)
         tpack[:t, 10:13] = fn
     return pack, tpack, thr
+
+
+# The 8-ary table the path kernel walks (csrc/wide_walk.cuh), one row of
+# WIDE_ROW floats a wide node:
+#   floats [8k, 8k+8), child slot k < 8: box min (3), box max (3), then two
+#     int32 bit patterns: a leaf child's first tri_pack row and its count
+#     (> 0), or an interior child's wide node index and 0; an empty slot
+#     has the zero-width box at _EMPTY_BOX (never entered) and index -1;
+#   float 64 + o, ray octant o: the binary walk's visit rank of each slot,
+#     3 bits a slot (bits 3k..3k+2 for slot k), an int32 bit pattern.
+WIDE_ARITY = 8
+WIDE_ROW = 9 * WIDE_ARITY
+_EMPTY_BOX = np.float32(1e30)
+
+
+def pack_wide(bvh_pack: np.ndarray, thr_pack: np.ndarray, n_nodes: int):
+    """The 8-ary table over the binary tree in bvh_pack / thr_pack, its
+    wide depth and the walk's worst stack height: (table f32[Nw, WIDE_ROW],
+    depth, stack).
+
+    Each wide node's children are the frontier of a binary subtree: its
+    top node T, expanded (replaced by its two children) while fewer than
+    8 slots are used, the child of largest surface area first.  Leaf
+    children are exactly the binary leaves, and a wide interior child
+    is a binary interior node whose own box the walk tests before it
+    expands it.  A binary node the walk does not test (one expanded
+    inside a wide node) is expanded only when both children's boxes lie
+    inside its own, bit for bit: the slab test rounds monotonically, so a
+    child entered then implies the parent entered, and the wide walk
+    tests exactly the leaves the binary walk tests, in the same order.
+    T itself is tested as its parent's child record, except the root,
+    which is expanded only under the same containment rule (else the
+    root wide node holds the root alone).  The order words come from the
+    thread table: for octant o, walking thr_pack inside T's subtree and
+    emitting each frontier node reproduces the binary walk's order."""
+    b = int(n_nodes)
+    box_min = bvh_pack[:b, 0:3]
+    box_max = bvh_pack[:b, 3:6]
+    skip = bvh_pack[:b, 6].astype(np.int64)
+    cnt = bvh_pack[:b, 8].astype(np.int64)
+    enter_t = thr_pack[:b, 0::2].astype(np.int64)   # (b, octant)
+    skip_t = thr_pack[:b, 1::2].astype(np.int64)
+    interior = (cnt == 0) & (skip > np.arange(b) + 1)
+    ext = np.maximum(box_max.astype(np.float64) - box_min, 0.0)
+    area = ext[:, 0] * ext[:, 1] + ext[:, 1] * ext[:, 2] + ext[:, 2] * ext[:, 0]
+
+    def kids(n):
+        return [n + 1, int(skip[n + 1])]
+
+    def expandable(n):
+        return interior[n] and all(
+            (box_min[c] >= box_min[n]).all() and (box_max[c] <= box_max[n]).all()
+            for c in kids(n))
+
+    rows = []
+    depth = stack = 0
+    # (wide index, top node T, T tested as a child record, depth, stack
+    # height when the walk expands this node)
+    work = [(0, 0, False, 1, 0)]
+    while work:
+        j, top, tested, d, h = work.pop()
+        frontier = kids(top) if tested else [top]
+        while len(frontier) < WIDE_ARITY:
+            cand = [f for f in frontier if expandable(f)]
+            if not cand:
+                break
+            f = max(cand, key=lambda n: (area[n], -n))
+            i = frontier.index(f)
+            frontier[i:i + 1] = kids(f)
+        frontier = [f for f in frontier if interior[f] or cnt[f] > 0]
+        slot_of = {f: k for k, f in enumerate(frontier)}
+        row = np.zeros(WIDE_ROW, np.float32)
+        ints = row.view(np.int32)
+        kids_rows = row[:8 * WIDE_ARITY].reshape(WIDE_ARITY, 8)
+        kid_ints = ints[:8 * WIDE_ARITY].reshape(WIDE_ARITY, 8)
+        kids_rows[:, 0:6] = _EMPTY_BOX
+        kid_ints[:, 6] = -1
+        for k, f in enumerate(frontier):
+            kids_rows[k, 0:3] = box_min[f]
+            kids_rows[k, 3:6] = box_max[f]
+            if interior[f]:
+                # interior children take the next free wide indices
+                kid_ints[k, 6] = len(rows) + len(work) + 1
+                work.append((int(kid_ints[k, 6]), f, True, d + 1,
+                             h + len(frontier) - 1))
+            else:
+                kid_ints[k, 6] = int(bvh_pack[f, 7])
+                kid_ints[k, 7] = int(cnt[f])
+        for o in range(WIDE_ARITY):
+            # the binary walk inside T's subtree: enter what was expanded,
+            # emit (and skip) what is a child record
+            order, n = [], top
+            while n != skip_t[top, o]:
+                if n in slot_of:
+                    order.append(slot_of[n])
+                    n = skip_t[n, o]
+                else:
+                    n = enter_t[n, o]
+            order += [k for k in range(WIDE_ARITY) if k not in order]
+            ints[8 * WIDE_ARITY + o] = sum(r << (3 * k)
+                                           for r, k in enumerate(order))
+        depth = max(depth, d)
+        stack = max(stack, h + len(frontier))
+        rows.append((j, row))
+    table = np.zeros((len(rows), WIDE_ROW), np.float32)
+    for j, row in rows:
+        table[j] = row
+    return table, depth, stack
 
 
 def _bf16_round(a: np.ndarray) -> np.ndarray:
@@ -495,6 +615,8 @@ class SceneBuilder:
         bvh_pack, tri_pack, thr_pack = _pack_for_kernel(
             bvh, v0[:n_tris], v1[:n_tris], v2[:n_tris], tri_mat[:n_tris],
             fn[:n_tris])
+        wide_pack, _, wide_stack = pack_wide(bvh_pack, thr_pack,
+                                             bvh.num_nodes)
         if n_tris:
             tri_pack[:n_tris, 13] = _pack_uv_bf16(uv0[:n_tris])
             tri_pack[:n_tris, 14] = _pack_uv_bf16(uv1[:n_tris])
@@ -642,6 +764,7 @@ class SceneBuilder:
             med_min=t(med_min, np.float32), med_max=t(med_max, np.float32),
             med_neg_inv_density=t(med_nid, np.float32),
             med_albedo=t(med_albedo, np.float32),
+            wide_pack=t(wide_pack, np.float32),
             n_tris=n_tris, n_nodes=bvh.num_nodes,
             max_leaf=max(bvh.max_leaf_size, 1), n_textures=n_tex,
             n_spheres=n_spheres, n_quads=n_quads, n_lights=len(lights),
@@ -651,4 +774,5 @@ class SceneBuilder:
             has_smooth=bool(has_smooth),
             has_moving=bool((sph_center2 != sph_center).any()),
             env_tex=int(env_tex), env_rotation=float(env_rot),
-            env_scale=float(env_scale), seed=int(self.seed))
+            env_scale=float(env_scale), seed=int(self.seed),
+            wide_stack=int(wide_stack))

@@ -1,7 +1,8 @@
 """Build the CUDA kernels with nvcc at first use and bind them with ctypes.
 
 The sources under dsrt_tpu_torch/csrc/ (path_kernel.cu and
-path_kernel_prims.cu: dsrt_path_render and its instances;
+path_kernel_prims.cu: dsrt_path_render and its instances, and
+dsrt_path_occupancy;
 sphere_kernel.cu: dsrt_sphere_render;
 traverse_kernel.cu: dsrt_traverse and dsrt_traverse_sun) compile, one
 nvcc process per source, all started together, into objects that one
@@ -38,13 +39,15 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 SIGNATURES = {
-    # bvh, thr, tri, tri_shade, tri_aux, mat, pool, tex_w, tex_h,
-    # tex_off, cam, sun, params, accum, nrays; width height cam_w cam_h
-    # spp salt seed max_depth rr_start; rr_max_p t_min t_max; end
-    # tri_rows n_textures pool_n n_sph n_quads n_lights n_med env flags
-    # instance; env_rot env_scale time0 dt; stream
-    "dsrt_path_render": ([_P] * 15 + [_I] * 9 + [_F] * 3 + [_I] * 11
+    # wide, tri, tri_shade, tri_aux, mat, pool, tex_w, tex_h, tex_off,
+    # cam, sun, params, accum, counters; width height cam_w cam_h spp salt
+    # seed max_depth rr_start; rr_max_p t_min t_max; n_wide tri_rows
+    # n_textures pool_n n_sph n_quads n_lights n_med env flags instance;
+    # env_rot env_scale time0 dt; stream
+    "dsrt_path_render": ([_P] * 14 + [_I] * 9 + [_F] * 3 + [_I] * 11
                          + [_F] * 4 + [_P]),
+    # instance -> resident blocks per SM (negative: a CUDA error)
+    "dsrt_path_occupancy": [_I],
     # params, mat, pool, tex_w, tex_h, tex_off, accum, nrays; width height
     # cam_w cam_h spp salt seed max_depth rr_start n_mats n_sph n_med
     # n_lights env n_textures pool_n flags; rr_max_p t_min t_max env_rot

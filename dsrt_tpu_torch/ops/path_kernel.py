@@ -9,10 +9,13 @@ packs the scene's sphere, quad, light and medium records once per scene
 (`pack_params`, kept in `Scene.cache`, which the per-frame copies that
 `Scene.with_sun` makes share) and the sun vector once per sun direction;
 each launch then passes the camera vector, the runtime feature flags and
-the kernel instance the scene needs (`instance_of`).  The wrapper takes
-its plain version only for tensors on the CPU; for CUDA tensors it
-launches its kernel or raises.  LAUNCHES counts kernel launches, so a
-caller can show a run went through the kernels.
+the kernel instance the scene needs (`instance_of`).  The kernel walks
+the scene's 8-ary table `wide_pack` (csrc/wide_walk.cuh); a scene whose
+walk could need more stack than a thread holds (`Scene.wide_stack` above
+WIDE_STACK) is refused.  The wrapper takes its plain version only for
+tensors on the CPU; for CUDA tensors it launches its kernel or raises.
+LAUNCHES counts kernel launches, so a caller can show a run went through
+the kernels.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from dsrt_tpu_torch.models.scene import WIDE_ROW
 from dsrt_tpu_torch.ops import build
 from dsrt_tpu_torch.ops.shade import (check_scope, render_samples,
                                       sun_direction)
@@ -30,6 +34,9 @@ MAX_SPH = 12
 MAX_QUADS = 24
 MAX_LIGHTS = 8
 MAX_MED = 4
+# the wide walk's stack entries a thread holds (csrc/wide_walk.cuh
+# WIDE_STACK)
+WIDE_STACK = 64
 # floats of the packed records: spheres (8 each), quads (18), lights (2),
 # media (15)
 PARAM_LEN = 8 * MAX_SPH + 18 * MAX_QUADS + 2 * MAX_LIGHTS + 15 * MAX_MED
@@ -197,21 +204,30 @@ def _ptr(t: torch.Tensor, dtype: torch.dtype, name: str) -> int:
     return t.data_ptr()
 
 
-def _tables(scene):
-    dev = scene.device
-    if dev.type != "cuda":
-        raise ValueError(f"scene tables on {dev}, expected CUDA")
-    for name in ("bvh_pack", "thr_pack", "tri_pack", "tri_shade",
-                 "tri_aux", "mat_pack"):
+def _wide_tables(scene):
+    """(wide_pack, tri_pack) pointers after the checks the kernel needs."""
+    if scene.wide_stack > WIDE_STACK:
+        raise ValueError(
+            f"the scene's BVH needs a walk stack of {scene.wide_stack} "
+            f"entries; the path kernel holds {WIDE_STACK} (a deeper tree "
+            "than the kernel was built for)")
+    for name, cols in (("wide_pack", WIDE_ROW), ("tri_pack", 16),
+                       ("tri_shade", 16), ("tri_aux", 16), ("mat_pack", 16)):
         t = getattr(scene, name)
         _ptr(t, torch.float32, name)
-        if t.dim() != 2 or t.shape[1] != 16:
-            raise ValueError(f"{name}: expected (rows, 16), got "
+        if t.dim() != 2 or t.shape[1] != cols:
+            raise ValueError(f"{name}: expected (rows, {cols}), got "
                              f"{tuple(t.shape)}")
-    if scene.bvh_pack.shape[0] < scene.n_nodes:
-        raise ValueError("bvh_pack has fewer rows than n_nodes")
-    return (scene.bvh_pack.data_ptr(), scene.thr_pack.data_ptr(),
-            scene.tri_pack.data_ptr())
+    return scene.wide_pack.data_ptr(), scene.tri_pack.data_ptr()
+
+
+def occupancy(instance: int) -> int:
+    """Resident blocks per SM of kernel instance `instance` on the card."""
+    lib = build.load()
+    n = lib.dsrt_path_occupancy(int(instance))
+    if n < 0:
+        build.check(lib, -n, "dsrt_path_occupancy")
+    return n
 
 
 def path_render_plain(scene, cam, cfg, spp: int, salt: int = 0):
@@ -225,7 +241,7 @@ def path_render(scene, cam, cfg, spp: int | None = None, salt: int = 0):
     """Sum over `spp` samples of clamp01(L) per pixel, (height, width, 3)
     float32, and the exact ray count (int64 tensor).  CPU scene: the
     plain version; CUDA scene: kernel `dsrt_path_render`, one thread per
-    pixel running every sample."""
+    pixel running every sample, in warps that take 8x4 pixel tiles."""
     spp = cfg.resolved_spp() if spp is None else int(spp)
     if scene.device.type == "cpu":
         return path_render_plain(scene, cam, cfg, spp, salt)
@@ -234,7 +250,7 @@ def path_render(scene, cam, cfg, spp: int | None = None, salt: int = 0):
     if why is not None:
         raise NotImplementedError(why)
     lib = build.load()
-    bvh, thr, tri = _tables(scene)
+    wide, tri = _wide_tables(scene)
     dev = scene.device
     n_tex = int(scene.n_textures)
     for name in ("tex_w", "tex_h", "tex_off"):
@@ -254,21 +270,23 @@ def path_render(scene, cam, cfg, spp: int | None = None, salt: int = 0):
     sun_vec = sun_vector(scene, cfg.shadow_bias)
     accum = torch.empty((cfg.height, cfg.width, 3), dtype=torch.float32,
                         device=dev)
-    nrays = torch.zeros(1, dtype=torch.int64, device=dev)
-    # a scene without triangles walks no tree: end 0 is a miss at once
-    end = int(scene.n_nodes) if scene.n_tris > 0 else 0
+    # the ray count, then the kernel's tile counter
+    counters = torch.zeros(2, dtype=torch.int64, device=dev)
+    # a scene without triangles walks no tree: 0 wide nodes is a miss at
+    # once
+    n_wide = int(scene.wide_pack.shape[0]) if scene.n_tris > 0 else 0
     rc = lib.dsrt_path_render(
-        bvh, thr, tri, scene.tri_shade.data_ptr(), scene.tri_aux.data_ptr(),
+        wide, tri, scene.tri_shade.data_ptr(), scene.tri_aux.data_ptr(),
         scene.mat_pack.data_ptr(), pool.data_ptr(), scene.tex_w.data_ptr(),
         scene.tex_h.data_ptr(), scene.tex_off.data_ptr(),
         _ptr(cam_vec, torch.float32, "camera"),
         _ptr(sun_vec, torch.float32, "sun"),
         _ptr(params, torch.float32, "params"), accum.data_ptr(),
-        nrays.data_ptr(),
+        counters.data_ptr(),
         int(cfg.width), int(cfg.height), int(cam.width), int(cam.height),
         spp, _i32(salt), _i32(scene.seed), int(cfg.resolved_max_depth()),
         int(cfg.rr_start_depth), float(cfg.rr_max_p), float(cfg.hit_eps),
-        float(cfg.hit_tmax), end, int(scene.tri_pack.shape[0]), n_tex,
+        float(cfg.hit_tmax), n_wide, int(scene.tri_pack.shape[0]), n_tex,
         int(pool.shape[0]), scene.n_spheres, scene.n_quads, scene.n_lights,
         scene.n_media, int(scene.env_tex), flags_of(scene, cfg),
         instance_of(scene, cfg),
@@ -278,4 +296,4 @@ def path_render(scene, cam, cfg, spp: int | None = None, salt: int = 0):
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, rc, "dsrt_path_render")
     LAUNCHES["dsrt_path_render"] += 1
-    return accum, nrays[0]
+    return accum, counters[0]

@@ -41,6 +41,7 @@ from __future__ import annotations
 import contextlib
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from dsrt_tpu_torch.ops import rng as rngmod
@@ -75,12 +76,14 @@ _COUNTS: dict | None = None
 def walk_counter():
     """Count the plain walk's node visits and triangle tests, and the
     sphere, quad and medium tests (one per active ray and primitive),
-    inside the block: yields a dict {"visits", "tests", "spheres",
-    "quads", "media"}; read each with int() (counts stay on the device
-    until then)."""
+    inside the block, and `wide_walk_plain`'s wide node visits and
+    triangle tests: yields a dict {"visits", "tests", "spheres", "quads",
+    "media", "wide_visits", "wide_tests"}; read each with int() (counts
+    stay on the device until then)."""
     global _COUNTS
     prev, _COUNTS = _COUNTS, {"visits": 0, "tests": 0, "spheres": 0,
-                              "quads": 0, "media": 0}
+                              "quads": 0, "media": 0, "wide_visits": 0,
+                              "wide_tests": 0}
     try:
         yield _COUNTS
     finally:
@@ -211,6 +214,114 @@ def lane_traverse(scene, ro: V3, rd: V3, t_min: float, t_max: float,
     t_out = torch.where(tri >= 0, closest, tmax_f)
     return (t_out.reshape(shape), uu.reshape(shape), vv.reshape(shape),
             tri.reshape(shape))
+
+
+def wide_walk_plain(scene, ro: V3, rd: V3, t_min: float, t_max: float,
+                    active: torch.Tensor, any_hit: bool = False):
+    """The path kernel's walk (csrc/wide_walk.cuh) over the 8-ary table
+    `wide_pack`, one ray at a time in numpy float32: the spec the kernel
+    is held to, used by the tests.  Returns what `lane_traverse` returns,
+    (t, u, v, tri), and must equal it ray for ray.
+
+    A wide node's visit tests its 8 child boxes with the binary walk's
+    slab arithmetic, giving each an interval (lo, hi) without the running
+    closest t, and pushes the children it enters (nmin(hi, closest) > lo)
+    in reverse visit order (the octant's rank word), so the first in the
+    binary walk's order is popped first.  A pop re-tests the interval
+    against the current closest, as the binary walk tests that box when
+    it reaches it; an interior child is then visited, a leaf child's rows
+    scanned in order with `<=`.  Under walk_counter it adds the wide
+    nodes visited ("wide_visits") and its triangle tests ("wide_tests",
+    equal to the binary walk's "tests")."""
+    f32 = np.float32
+    wide = scene.wide_pack.cpu().numpy()
+    wint = wide.view(np.int32)
+    tp = scene.tri_pack.cpu().numpy()
+    o_all = np.stack([c.reshape(-1).cpu().numpy() for c in ro], 1).astype(f32)
+    d_all = np.stack([c.reshape(-1).cpu().numpy() for c in rd], 1).astype(f32)
+    act = active.reshape(-1).cpu().numpy()
+    n = act.size
+    t_out = np.full(n, f32(t_max), f32)
+    u_out = np.zeros(n, f32)
+    v_out = np.zeros(n, f32)
+    tri_out = np.full(n, -1, np.int64)
+    tmin, tmax = f32(t_min), f32(t_max)
+    boxes = wide[:, :64].reshape(-1, 8, 8)
+    lo_b, hi_b = boxes[:, :, 0:3], boxes[:, :, 3:6]
+    refs = wint[:, :64].reshape(-1, 8, 8)[:, :, 6:8]
+    ranks = (wint[:, 64:72, None] >> (3 * np.arange(8))) & 7   # (Nw, oct, slot)
+    visits = tests = 0
+    for i in np.nonzero(act)[0] if scene.n_tris > 0 else ():
+        o, d = o_all[i], d_all[i]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            inv = f32(1.0) / d
+        neg = inv < 0
+        octant = int(d[0] < 0) + 2 * int(d[1] < 0) + 4 * int(d[2] < 0)
+        closest, hit = tmax, None
+        stack, node = [], 0
+        while node is not None:
+            visits += 1
+            with np.errstate(invalid="ignore", over="ignore"):
+                t0 = (lo_b[node] - o) * inv                     # (8, 3)
+                t1 = (hi_b[node] - o) * inv
+            near = np.where(neg, t1, t0)
+            far = np.where(neg, t0, t1)
+            lo = np.maximum(np.maximum(np.maximum(tmin, near[:, 0]),
+                                       near[:, 1]), near[:, 2])
+            hi = np.minimum(np.minimum(far[:, 0], far[:, 1]), far[:, 2])
+            entered = np.minimum(hi, closest) > lo
+            for k in sorted(np.nonzero(entered)[0],
+                            key=lambda k: -ranks[node, octant, k]):
+                stack.append((lo[k], hi[k], int(refs[node, k, 0]),
+                              int(refs[node, k, 1])))
+            node = None
+            while stack:
+                lo_k, hi_k, ref, cnt = stack.pop()
+                if not np.minimum(hi_k, closest) > lo_k:
+                    continue
+                if cnt == 0:
+                    node = ref
+                    break
+                tests += cnt
+                for r in range(ref, ref + cnt):
+                    r = min(r, tp.shape[0] - 1)
+                    got = _mt_row(tp[r], o, d, tmin, closest)
+                    if got is not None:
+                        closest = tmin if any_hit else got[0]
+                        hit = (r, got[1], got[2])
+                if any_hit and hit is not None:
+                    stack.clear()
+        if hit is not None:
+            t_out[i], u_out[i], v_out[i], tri_out[i] = (closest, hit[1],
+                                                        hit[2], hit[0])
+    if _COUNTS is not None:
+        _COUNTS["wide_visits"] = _COUNTS["wide_visits"] + visits
+        _COUNTS["wide_tests"] = _COUNTS["wide_tests"] + tests
+    shape, dev = ro.x.shape, ro.x.device
+    return tuple(torch.from_numpy(a).reshape(shape).to(dev)
+                 for a in (t_out, u_out, v_out, tri_out))
+
+
+def _mt_row(row, o, d, t_min, closest):
+    """Moller-Trumbore on one tri_pack row in _leaf_scan's arithmetic:
+    (t, u, v) when it accepts (t_min <= t <= closest), else None."""
+    e1x, e1y, e1z, e2x, e2y, e2z = row[3:9]
+    pvx = d[1] * e2z - d[2] * e2y
+    pvy = d[2] * e2x - d[0] * e2z
+    pvz = d[0] * e2y - d[1] * e2x
+    det = e1x * pvx + e1y * pvy + e1z * pvz
+    ok = abs(det) >= np.float32(1e-8)
+    inv_det = np.float32(1.0) / (det if ok else np.float32(1.0))
+    tvx, tvy, tvz = o[0] - row[0], o[1] - row[1], o[2] - row[2]
+    u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det
+    ok = ok and u >= 0 and u <= 1
+    qvx = tvy * e1z - tvz * e1y
+    qvy = tvz * e1x - tvx * e1z
+    qvz = tvx * e1y - tvy * e1x
+    v = (d[0] * qvx + d[1] * qvy + d[2] * qvz) * inv_det
+    ok = ok and v >= 0 and u + v <= 1
+    t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det
+    return (t, u, v) if ok and t >= t_min and t <= closest else None
 
 
 def hit_from_kernel(scene, ro: V3, rd: V3, t, u, v, tri, t_max) -> Hit:

@@ -25,7 +25,7 @@ import torch
 
 from dsrt_tpu_torch.ops import build
 from dsrt_tpu_torch.ops.linalg import V3, const, sqrt
-from dsrt_tpu_torch.ops.path_kernel import _ptr, _require_cuda, _tables
+from dsrt_tpu_torch.ops.path_kernel import _ptr, _require_cuda
 from dsrt_tpu_torch.ops.trace import lane_traverse
 
 LAUNCHES = {"dsrt_traverse": 0, "dsrt_traverse_sun": 0}
@@ -49,6 +49,25 @@ H100_BYTES_PER_S = 3.35e12
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def _tables(scene):
+    """(bvh_pack, thr_pack, tri_pack) pointers after the checks the
+    traversal kernels need."""
+    dev = scene.device
+    if dev.type != "cuda":
+        raise ValueError(f"scene tables on {dev}, expected CUDA")
+    for name in ("bvh_pack", "thr_pack", "tri_pack", "tri_shade",
+                 "tri_aux", "mat_pack"):
+        t = getattr(scene, name)
+        _ptr(t, torch.float32, name)
+        if t.dim() != 2 or t.shape[1] != 16:
+            raise ValueError(f"{name}: expected (rows, 16), got "
+                             f"{tuple(t.shape)}")
+    if scene.bvh_pack.shape[0] < scene.n_nodes:
+        raise ValueError("bvh_pack has fewer rows than n_nodes")
+    return (scene.bvh_pack.data_ptr(), scene.thr_pack.data_ptr(),
+            scene.tri_pack.data_ptr())
 
 
 def traverse_plain(scene, ro: V3, rd: V3, active, t_min: float,

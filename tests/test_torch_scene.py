@@ -23,8 +23,8 @@ from dsrt_tpu_torch.models import mesh_gen as tmesh
 from dsrt_tpu_torch.models.materials import Material
 from dsrt_tpu_torch.models.obj import load_obj
 from dsrt_tpu_torch.models import presets as tpresets
-from dsrt_tpu_torch.models.scene import (META, TABLES, SceneBuilder,
-                                         scene_from_reference)
+from dsrt_tpu_torch.models.scene import (META, REF_TABLES, SceneBuilder,
+                                         pack_wide, scene_from_reference)
 from test_envmap import _env_array as env_array
 from test_envmap import _scene as jenv_scene
 from test_fused_spheres import _dof_motion_scene as jdof_motion_scene
@@ -62,13 +62,19 @@ def mixed_material_scene(builder_cls, n: int = 90, rng_seed: int = 11,
 
 
 def assert_same_tables(port, ref):
-    for name, dtype in TABLES:
+    for name, dtype in REF_TABLES:
         want = np.asarray(getattr(ref, name)).astype(dtype)
         got = getattr(port, name).cpu().numpy()
         assert got.shape == want.shape, name
         assert np.array_equal(got, want), name
     for name in META:
         assert getattr(port, name) == getattr(ref, name), name
+    # the port's own table, derived from the shared ones
+    wide, _, stack = pack_wide(np.asarray(ref.bvh_pack),
+                               np.asarray(ref.thr_pack), int(ref.n_nodes))
+    assert np.array_equal(port.wide_pack.cpu().numpy().view(np.uint32),
+                          wide.view(np.uint32))
+    assert port.wide_stack == stack
 
 
 def test_station_obj_tables_match():
