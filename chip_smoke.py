@@ -26,7 +26,15 @@ version on the card (accumulators and ray counts) in phases 4, 5, 13 and
 32 spp) and bounds it from that frame's counted work, and the design
 phase after it prints the kernel's time there, node visits per query of
 the binary and the 8-ary walk, and the tail share of a stamped copy of
-the kernel (dsrt_tpu_torch/tools/path_probe.py).  Each phase prints one
+the kernel (dsrt_tpu_torch/tools/path_probe.py); the deep-stack phase
+after it holds the path kernel bit for bit against its plain version on
+two trees whose walk needs a deep stack (the nested triangles, above 64
+entries; the 264k stand-in, at 64).  Before the sphere
+phases, the exact-math phase tries every input the kernels give their
+short exact cos and sin (csrc/exact_math.cuh) against
+libdevice and the plain version's float64 calls; after them, the sphere
+design phase prints the sphere kernel's registers, resident blocks, tail
+share, longest pixel and per-phase cycle shares.  Each phase prints one
 line; any failure raises, so the exit code is nonzero.  The last two lines are the kernels' JSON summary and
 {"ok": true, "device": {...}}.  Needs one CUDA device; imports no JAX and
 nothing of the JAX package.
@@ -174,6 +182,78 @@ def random_rays(n: int, seed: int, device):
             V3(*(torch.from_numpy(c).to(device) for c in d)))
 
 
+def deep_stack_phase(dev, regs: dict) -> dict:
+    """The path kernel on trees whose walk needs a deep stack: more than
+    the 64 entries the kernel held before it took the TPU kernel's 256
+    (the nested triangles) or exactly 64 (the detail-28 stand-in, 264k
+    triangle references), 64x36 spp 2 depth 8, against the plain version
+    on the card: identical accumulators and rays."""
+    from dsrt_tpu_torch.config import RenderConfig
+    from dsrt_tpu_torch.models import feature_scenes as fs
+    from dsrt_tpu_torch.models.materials import Material
+    from dsrt_tpu_torch.models.mesh_gen import iss_standin_scene
+    from dsrt_tpu_torch.models.scene import SceneBuilder
+    from dsrt_tpu_torch.ops import path_kernel
+    from dsrt_tpu_torch.ops.camera import make_camera, point_camera_at
+    cfg = RenderConfig(width=64, height=36, spp=2, max_depth=8)
+    out = {}
+    for name in ("nested triangles", "stand-in detail 28"):
+        t0 = time.perf_counter()
+        if name == "nested triangles":
+            scene = fs.nested_triangles(SceneBuilder, Material).build(
+                device=dev)
+            cam = make_camera((0.0, 0.0, 2.0), (0.0, 0.0, -1.0), vfov=50,
+                              width=64, height=36, device=dev)
+        else:
+            scene = iss_standin_scene(detail=28, device="cpu").to(dev)
+            cam = point_camera_at(SUNLIT_CAM, vfov=cfg.vfov, width=64,
+                                  height=36, device=dev)
+        built = time.perf_counter() - t0
+        inst = path_kernel.instance_of(scene, cfg)
+        acc_k, n_k = path_kernel.path_render(scene, cam, cfg)
+        acc_p, n_p = path_kernel.path_render_plain(scene, cam, cfg, 2)
+        torch.cuda.synchronize()
+        same = float((acc_k == acc_p).all(-1).float().mean())
+        lit = float((acc_p > 0).float().mean())
+        phase("5 deep stack",
+              f"{name}: {scene.n_tris} triangle references, wide_stack "
+              f"{scene.wide_stack} (the kernel's stack "
+              f"{path_kernel.WIDE_STACK}), built in {built:.1f} s; "
+              f"instance {inst} "
+              f"({regs.get(f'path_render_kernel<{inst}>', '?')} registers) "
+              f"64x36 spp2 depth8: accumulators identical to the plain "
+              f"version on the card on {same:.4%} of pixels, rays "
+              f"{int(n_k)} vs {int(n_p)} (tolerance: identical); lit {lit:.2f}")
+        require(torch.equal(acc_k, acc_p) and int(n_k) == int(n_p),
+                f"path kernel and its plain version differ on {name}")
+        require(lit > 0.05, f"{name} frame is dark")
+        require(name != "nested triangles" or scene.wide_stack > 64,
+                f"{name}: wide_stack {scene.wide_stack}, not above 64")
+        out[name] = {"wide_stack": scene.wide_stack, "instance": inst,
+                     "identical": same, "rays": int(n_k)}
+    return out
+
+
+def exact_math_phase(dev) -> dict:
+    """Every input the kernels give their short exact math, on the card,
+    against libdevice and the plain version's float64 calls."""
+    from dsrt_tpu_torch.ops import exact_math
+    out = {}
+    for fn in exact_math.DOMAINS:
+        t0 = time.perf_counter()
+        r = exact_math.check(fn, dev)
+        phase("7 exact math",
+              f"{fn}: {r['inputs']} inputs (every input the kernels give "
+              f"it), mismatches "
+              f"{r['vs_libdevice']} vs libdevice's (float)op((double)x), "
+              f"{r['vs_plain']} vs the plain version's f64_op (required: "
+              f"0); {time.perf_counter() - t0:.1f} s")
+        require(r["vs_libdevice"] == 0 and r["vs_plain"] == 0,
+                f"exact {fn} differs from the float64 call")
+        out[fn] = r
+    return out
+
+
 def sphere_cases():
     """(name, CPU scene, config extras, look-from, vfov) of the sphere
     scenes the kernel is checked on: the three presets, depth of field
@@ -195,17 +275,20 @@ def sphere_cases():
          {}, (0.0, 0.6, 2.0), 50)]
 
 
-def sphere_phases(dev) -> dict:
-    """Phases 7-8: the sphere kernel against its plain version on five
-    scenes, then the two full-size sphere frames through
-    render_frame_fused.  Returns the kernel's entry of the JSON line."""
+def sphere_phases(dev, regs: dict) -> dict:
+    """Phases 7-8: the exact math, the sphere kernel against its plain
+    version on five scenes, then the two full-size sphere frames through
+    render_frame_fused and the kernel's design measurements there.
+    Returns the kernel's entry of the JSON line."""
     from dsrt_tpu_torch.config import RenderConfig
     from dsrt_tpu_torch.models import presets
     from dsrt_tpu_torch.ops import sphere_kernel as sk
     from dsrt_tpu_torch.ops.camera import make_camera
     from dsrt_tpu_torch.ops.traverse import roofline_ms
     from dsrt_tpu_torch.render import render_frame_fused, tonemap
+    from dsrt_tpu_torch.tools import path_probe
 
+    exact = exact_math_phase(dev)
     # 7. kernel vs plain on the card (and the plain version on the CPU),
     # 64x36, 4 spp, max_depth 12: identical accumulators and ray counts
     for name, scene_cpu, extra, look, vfov in sphere_cases():
@@ -239,6 +322,7 @@ def sphere_phases(dev) -> dict:
 
     # 8. full size through the user entry point
     entry = None
+    design, frames = {}, []
     for name, w, h, spp in SPHERE_FRAMES:
         cfg = RenderConfig(width=w, height=h, spp=spp, max_depth=50)
         scene = getattr(presets, name)(device=dev)
@@ -256,6 +340,10 @@ def sphere_phases(dev) -> dict:
         k_dev = device_ms(lambda: sk.sphere_render(scene, cam, cfg),
                           "sphere_render_kernel", 3)
         require(k_dev > 0, "the profiler saw no sphere kernel")
+        _, busy, prof_wall, _ = profile_frame(
+            lambda: render_frame_fused(scene, cam, cfg))
+        # None when the profiler recorded no kernel in that frame
+        idle = 1 - busy / prof_wall if busy > 0 else None
         cfg1 = dataclasses.replace(cfg, spp=1)
         k1 = event_ms(lambda: sk.sphere_render(scene, cam, cfg1), 10)
         p1 = event_ms(lambda: sk.sphere_render_plain(scene, cam, cfg1, 1), 1)
@@ -282,7 +370,10 @@ def sphere_phases(dev) -> dict:
               f"(profiler) {k_dev:.3f} ms, {rays} rays exact, "
               f"{rays / secs / 1e6:.2f} Mrays/s on the frame wall, "
               f"{rays / k_dev / 1e3:.1f} on the kernel, bound "
-              f"{frame_bound:.4f} ms by {frame_bound_by}; spp1 wrapper calls: "
+              f"{frame_bound:.4f} ms by {frame_bound_by}; frame wall minus "
+              f"wrapper call {secs * 1e3 - k_full:.3f} ms, device idle "
+              + (f"{idle:.1%}" if idle is not None else "not measured")
+              + f" of a profiled frame ({prof_wall:.2f} ms); spp1 wrapper calls: "
               f"kernel {k1:.3f} ms, plain {p1:.1f} ms, max |d| {err1:.3g}, "
               f"rays {int(n_k1)} vs {int(n_p1)}; launches {launches}")
         require(torch.equal(acc_k1, acc_p1) and int(n_k1) == int(n_p1),
@@ -301,10 +392,35 @@ def sphere_phases(dev) -> dict:
                 **{name: launches}),
             "frames": dict((entry or {}).get("frames", {}), **{name: {
                 "shape": f"{w}x{h} spp{spp} max_depth50",
-                "wrapper_ms": k_full, "device_ms": k_dev,
+                "frame_kernel_ms": k_full, "device_ms": k_dev,
                 "bound_ms": frame_bound, "bound_by": frame_bound_by,
+                "frame_ms": secs * 1e3, "rays": rays,
+                "idle_share": idle,
                 "launches": launches}})}
+        frames.append((name, w, h, spp, scene, cam, cfg))
+    # the design: registers, resident blocks, and from one launch of a
+    # stamped copy (built once for both frames) the tail share, the
+    # longest pixel and the share of each phase's cycles in the longest
+    # 1% of pixels
+    stamped = path_probe.sphere_tail_shares([f[4:] for f in frames])
+    for (name, w, h, spp, scene, _, _), t in zip(frames, stamped):
+        blocks = sk.occupancy(scene.mat_pack.shape[0])
+        shares = ", ".join(f"{p} {v:.1%}"
+                           for p, v in t["phase_share_longest"].items())
+        phase("8 design",
+              f"{name} {w}x{h} spp{spp}: sphere_render_kernel "
+              f"{regs.get('sphere_render_kernel', '?')} registers, {blocks} "
+              f"blocks of 128 resident per SM; tail share "
+              f"{t['tail_share']:.2%} of a {t['window_ms']:.3f} ms window "
+              f"(stamped copy), SM busy mean {t['sm_busy_mean']:.2%}; "
+              f"longest pixel {t['pixel_max_ms']:.3f} ms, p99 "
+              f"{t['pixel_p99_ms']:.3f} ms, median {t['pixel_p50_ms']:.3f} "
+              f"ms; cycles in the longest {t['phase_pixels_longest']} "
+              f"pixels: {shares}")
+        design[name] = dict(t, registers=regs.get("sphere_render_kernel"),
+                            blocks_per_sm=blocks)
     entry["launches"] = sum(entry["launches_by_frame"].values())
+    entry.update(exact_math=exact, design=design)
     return entry
 
 
@@ -843,6 +959,7 @@ def main() -> int:
 
     dev = torch.device("cuda")
     os.makedirs(OUT, exist_ok=True)
+    t_start = time.perf_counter()
 
     # 1. the card
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -859,7 +976,8 @@ def main() -> int:
     t0 = time.perf_counter()
     build.load()
     regs = register_counts(build.build_info["log"])
-    blocks = {m: path_kernel.occupancy(m) for m in range(16)}
+    blocks = {m: path_kernel.occupancy(m)
+              for m in range(path_kernel.N_INSTANCES)}
     phase("2 build", f"{time.perf_counter() - t0:.1f} s "
                      f"(nvcc {build.build_info['seconds']:.1f} s); registers "
                      + ", ".join(f"{k} {v}" for k, v in sorted(regs.items()))
@@ -1045,6 +1163,7 @@ def main() -> int:
     kernels["dsrt_path_render"].update(
         registers=regs.get("path_render_kernel<0>"),
         blocks_per_sm=blocks[0], tail=tail, visits_per_query=visits)
+    kernels["dsrt_path_render"]["deep_stack"] = deep_stack_phase(dev, regs)
 
     # 6. the driver over two poses
     poses = os.path.join(OUT, "poses.txt")
@@ -1068,7 +1187,7 @@ def main() -> int:
     phase("6 driver", f"rc {rc}, frames {pngs}, lit shares {lit}")
     require(rc == 0 and len(pngs) == 2 and min(lit) > 0, "driver frames")
 
-    kernels["dsrt_sphere_render"] = sphere_phases(dev)
+    kernels["dsrt_sphere_render"] = sphere_phases(dev, regs)
     kernels.update(split_phases(dev, poses))
     mixed = mixed_phases(dev, regs)
     # phase 3's launches are microbenchmark launches too; phases 5 and 14
@@ -1088,6 +1207,7 @@ def main() -> int:
     require(not [m for m in sys.modules
                  if m == "dsrt_tpu" or m.startswith("dsrt_tpu.")],
             "the JAX package was imported")
+    phase("done", f"{time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

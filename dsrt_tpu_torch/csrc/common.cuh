@@ -9,14 +9,17 @@
 // built with -fmad=false and without fast-math, so every expression below
 // rounds exactly like the plain PyTorch version (dsrt_tpu_torch/ops/).
 // cos, sin and pow are evaluated in double and rounded once to float, as
-// the plain version does, so both give the correctly rounded float;
-// sqrtf and '/' are IEEE-exact already.  Float constants that are not
-// short binary fractions are written as hex literals of the float32
-// values the reference uses.
+// the plain version does, so both give the same float (the direction
+// samplers' cos / sin by the short sequence of exact_math.cuh, proven on
+// every input it receives); sqrtf and '/' are IEEE-exact already.  Float
+// constants that are not short binary fractions are written as hex
+// literals of the float32 values the reference uses.
 #pragma once
 
 #include <cstdint>
 #include <math.h>
+
+#include "exact_math.cuh"
 
 namespace dsrt {
 
@@ -79,7 +82,9 @@ __device__ __forceinline__ f3 random_cosine_direction(uint32_t& s) {
   float z = sqrtf(nmax(1.0f - r2, 0.0f));
   float phi = TWO_PI_F * r1;
   float sq = sqrtf(nmax(r2, 0.0f));
-  return {(float)cos((double)phi) * sq, (float)sin((double)phi) * sq, z};
+  float cphi, sphi;
+  sincos_angle(phi, cphi, sphi);
+  return {cphi * sq, sphi * sq, z};
 }
 
 // cosine-weighted world direction about n and its pdf; 2 draws
@@ -127,7 +132,9 @@ __device__ __forceinline__ f3 sphere_light_sample(f3 c, float radius, f3 origin,
   float z = 2.0f * uz - 1.0f;
   float phi = TWO_PI_F * uphi;
   float r = sqrtf(nmax(1.0f - z * z, 0.0f));
-  f3 local = mk(r * (float)cos((double)phi), r * (float)sin((double)phi), z);
+  float cphi, sphi;
+  sincos_angle(phi, cphi, sphi);
+  f3 local = mk(r * cphi, r * sphi, z);
   f3 pl = add(c, scale(local, radius));
   f3 tl = sub(pl, origin);
   float dist2 = dot(tl, tl);

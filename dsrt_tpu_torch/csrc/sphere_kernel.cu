@@ -24,12 +24,26 @@
 // What bounds it on the H100: there is no tree; every query tests every
 // sphere and medium, so a thread's time is arithmetic on a short,
 // dependent chain, and neighbouring pixels diverge in depth and material.
+// The rtiow frame (90,000 pixels) is resident on the card at once, so its
+// time is the latency of its longest pixel's bounce chain (2.29 of a 2.30
+// ms window); the volumetric frame (360,000 pixels) takes several rounds.
+// What the design does about it: the direction samplers' cos and sin are
+// exact_math.cuh's short sequence, one reduction for both, proven to
+// round as the plain version's float64 calls on every input it receives.
+// Measured and not kept (PERF.md, the sphere kernel's redesign): the
+// sphere tests four at a time with an in-order select (exact, but the
+// volumetric frame ran 29% slower), persistent warps over 8x4 or 16x2
+// tiles (rtiow 11-13% slower), the exact log of the free path, a 64-bit
+// ray sum and launch bounds for six or seven blocks an SM (each more
+// registers or spills, and the volumetric frame slower).
 // The scene parameters every thread loops over (spheres, media, lights,
 // camera, sun) sit in __constant__ memory, where a warp's uniform read is
 // one broadcast; the material rows (indexed per thread) are copied to
 // shared memory at block start; the environment map is read with direct
-// indexed global loads.  A launch copies its parameters into the constant
-// bank on its stream first, so launches are ordered by that stream.
+// indexed global loads.  A launch copies the scene's parameter vector
+// (packed once per scene by the wrapper) and the camera vector into the
+// constant bank on its stream first, so launches are ordered by that
+// stream.
 //
 // The sphere, medium, shadow and procedural-texture device code is
 // shared with the path kernel (csrc/prims.cuh).
@@ -39,6 +53,7 @@
 
 #include <cuda_runtime.h>
 
+#include <cstddef>
 #include <cstdint>
 
 #include "common.cuh"
@@ -329,17 +344,25 @@ __global__ void __launch_bounds__(BLOCK_W* BLOCK_H) sphere_render_kernel(const A
 
 extern "C" {
 
-int dsrt_sphere_render(const float* params, const float* mat, const float* pool, const int* tex_w,
-                       const int* tex_h, const int* tex_off, float* accum,
-                       unsigned long long* nrays, int width, int height, int cam_w, int cam_h,
-                       int spp, int salt, int seed, int max_depth, int rr_start, int n_mats,
-                       int n_sph, int n_med, int n_lights, int env, int n_textures, int pool_n,
-                       int flags, float rr_max_p, float t_min, float t_max, float env_rot,
-                       float env_scale, float time0, float dt, void* stream) {
+// `params` is the scene's parameter vector (`Params`, its camera slot
+// unused), `cam` the camera vector
+int dsrt_sphere_render(const float* params, const float* cam, const float* mat,
+                       const float* pool, const int* tex_w, const int* tex_h, const int* tex_off,
+                       float* accum, unsigned long long* nrays, int width, int height, int cam_w,
+                       int cam_h, int spp, int salt, int seed, int max_depth, int rr_start,
+                       int n_mats, int n_sph, int n_med, int n_lights, int env, int n_textures,
+                       int pool_n, int flags, float rr_max_p, float t_min, float t_max,
+                       float env_rot, float env_scale, float time0, float dt, void* stream) {
   using namespace dsrt::sph;
+  if (n_sph < 0 || n_sph > MAX_SPH || n_med < 0 || n_med > MAX_MED || n_lights < 0 ||
+      n_lights > MAX_LIGHTS)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = cudaMemcpyToSymbolAsync(P, params, sizeof(Params), 0,
                                             cudaMemcpyDeviceToDevice, s);
+  if (err == cudaSuccess)
+    err = cudaMemcpyToSymbolAsync(P, cam, sizeof(Params::cam), offsetof(Params, cam),
+                                  cudaMemcpyDeviceToDevice, s);
   if (err != cudaSuccess) return (int)err;
   Args a;
   a.mat = mat;
@@ -378,6 +401,16 @@ int dsrt_sphere_render(const float* params, const float* mat, const float* pool,
   size_t smem = (size_t)n_mats * 16 * sizeof(float);
   sphere_render_kernel<<<grid, block, smem, s>>>(a);
   return (int)cudaGetLastError();
+}
+
+// resident blocks per SM of the sphere kernel with n_mats material rows
+// in shared memory, or a negative CUDA error code
+int dsrt_sphere_occupancy(int n_mats) {
+  using namespace dsrt::sph;
+  int n = 0;
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, sphere_render_kernel, BLOCK_W * BLOCK_H, (size_t)n_mats * 16 * sizeof(float));
+  return e == cudaSuccess ? n : -(int)e;
 }
 
 }  // extern "C"

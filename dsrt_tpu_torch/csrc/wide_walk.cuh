@@ -40,9 +40,11 @@
 namespace dsrt {
 
 constexpr int WIDE_ROW = 72;
-// stack entries a thread holds; ops/path_kernel.py refuses a scene whose
-// `wide_stack` (pack_wide's worst height) exceeds it
-constexpr int WIDE_STACK = 64;
+// stack entries a thread holds, as deep as the TPU kernel's wide walk
+// (pallas_path.py:470); ops/path_kernel.py refuses a scene whose
+// `wide_stack` (pack_wide's worst height) exceeds it, so no push can
+// overflow.  A walk touches only the entries up to its own depth.
+constexpr int WIDE_STACK = 256;
 
 struct WideTables {
   const float* wide;

@@ -222,6 +222,34 @@ def volumetric_mesh(B, M, standin_mesh=None, detail: int = 4, **_):
     return b
 
 
+def nested_triangles_mesh(M, n: int = 400, ratio: float = 0.95):
+    """n copies of one triangle, each `ratio` times the size of the one
+    before and nearer the eye (copy k: scale ratio^k about the z axis, at
+    z = -ratio^k / 2).  Every copy contains the axis, so the SAH tree
+    grows a long spine: its 8-ary walk needs a deep stack (`wide_stack`
+    86 at the defaults)."""
+    s = ratio ** np.arange(n, dtype=np.float64)
+    base = np.asarray([[-1.0, -1.0], [1.0, -1.0], [0.0, 1.0]])
+    v = np.empty((n, 3, 3), np.float64)
+    v[:, :, 0:2] = base[None] * s[:, None, None]
+    v[:, :, 2] = -0.5 * s[:, None]
+    v = v.astype(np.float32)
+    zuv = np.zeros((n, 2), np.float32)
+    return types.SimpleNamespace(
+        v0=v[:, 0], v1=v[:, 1], v2=v[:, 2], uv0=zuv, uv1=zuv, uv2=zuv,
+        materials=[M.lambertian((0.8, 0.6, 0.4))] * n, tex_paths=[""] * n)
+
+
+def nested_triangles(B, M, n: int = 400, ratio: float = 0.95,
+                     sun: bool = True, **_):
+    """The nested triangles (`nested_triangles_mesh`) under the sun, seen
+    from (0, 0, 2) towards (0, 0, -1)."""
+    b = B(sun_enabled=sun, sun_dir=(-0.3, -0.4, -1.0),
+          sun_radiance=(4.0, 4.0, 4.0), seed=1337, bvh_method="sbvh")
+    b.add_mesh(nested_triangles_mesh(M, n, ratio))
+    return b
+
+
 CASES = {
     "sphere_mix": (sphere_mix, *MIX_LOOK, {}),
     "quad_light": (quad_light, *MIX_LOOK, {}),

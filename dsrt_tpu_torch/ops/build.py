@@ -3,8 +3,10 @@
 The sources under dsrt_tpu_torch/csrc/ (path_kernel.cu and
 path_kernel_prims.cu: dsrt_path_render and its instances, and
 dsrt_path_occupancy;
-sphere_kernel.cu: dsrt_sphere_render;
-traverse_kernel.cu: dsrt_traverse and dsrt_traverse_sun) compile, one
+sphere_kernel.cu: dsrt_sphere_render and dsrt_sphere_occupancy;
+traverse_kernel.cu: dsrt_traverse and dsrt_traverse_sun;
+exact_math_check.cu: dsrt_exact_math_check, the card's proof of
+exact_math.cuh) compile, one
 nvcc process per source, all started together, into objects that one
 more nvcc call links into a shared library with a plain C interface (no
 PyTorch headers, so a build takes seconds):
@@ -48,11 +50,15 @@ SIGNATURES = {
                          + [_F] * 4 + [_P]),
     # instance -> resident blocks per SM (negative: a CUDA error)
     "dsrt_path_occupancy": [_I],
-    # params, mat, pool, tex_w, tex_h, tex_off, accum, nrays; width height
-    # cam_w cam_h spp salt seed max_depth rr_start n_mats n_sph n_med
+    # params, cam, mat, pool, tex_w, tex_h, tex_off, accum, nrays; width
+    # height cam_w cam_h spp salt seed max_depth rr_start n_mats n_sph n_med
     # n_lights env n_textures pool_n flags; rr_max_p t_min t_max env_rot
     # env_scale time0 dt; stream
-    "dsrt_sphere_render": [_P] * 8 + [_I] * 17 + [_F] * 7 + [_P],
+    "dsrt_sphere_render": [_P] * 9 + [_I] * 17 + [_F] * 7 + [_P],
+    # material rows -> resident blocks per SM (negative: a CUDA error)
+    "dsrt_sphere_occupancy": [_I],
+    # fn n; in, got, lib, mismatches, stream
+    "dsrt_exact_math_check": [_I] * 2 + [_P] * 5,
     # bvh, thr, tri, ox oy oz dx dy dz, active, t, u, v, tri_out; n end
     # tri_rows any_hit; t_min t_max; stream
     "dsrt_traverse": [_P] * 14 + [_I] * 4 + [_F] * 2 + [_P],

@@ -10,9 +10,10 @@ packs the scene's sphere, quad, light and medium records once per scene
 `Scene.with_sun` makes share) and the sun vector once per sun direction;
 each launch then passes the camera vector, the runtime feature flags and
 the kernel instance the scene needs (`instance_of`).  The kernel walks
-the scene's 8-ary table `wide_pack` (csrc/wide_walk.cuh); a scene whose
-walk could need more stack than a thread holds (`Scene.wide_stack` above
-WIDE_STACK) is refused.  The wrapper takes its plain version only for
+the scene's 8-ary table `wide_pack` (csrc/wide_walk.cuh) with a stack of
+WIDE_STACK entries a thread, as deep as the TPU kernel's; a tree whose
+worst stack height `Scene.wide_stack` is deeper is refused.  The
+wrapper takes its plain version only for
 tensors on the CPU; for CUDA tensors it launches its kernel or raises.
 LAUNCHES counts kernel launches, so a caller can show a run went through
 the kernels.
@@ -35,13 +36,14 @@ MAX_QUADS = 24
 MAX_LIGHTS = 8
 MAX_MED = 4
 # the wide walk's stack entries a thread holds (csrc/wide_walk.cuh
-# WIDE_STACK)
-WIDE_STACK = 64
+# WIDE_STACK), the TPU kernel's (dsrt_tpu/ops/pallas_path.py:470)
+WIDE_STACK = 256
 # floats of the packed records: spheres (8 each), quads (18), lights (2),
 # media (15)
 PARAM_LEN = 8 * MAX_SPH + 18 * MAX_QUADS + 2 * MAX_LIGHTS + 15 * MAX_MED
 # template bits of the kernel instance and runtime bits of its flags
 K_PRIMS, K_MEDIA, K_LIGHTS, K_EXTRA = 1, 2, 4, 8
+N_INSTANCES = 16
 (SUN_ON, TEXTURED, ENV, PTEX, SMOOTH, APERTURE, SHUTTER,
  MOVING) = (1, 2, 4, 8, 16, 32, 64, 128)
 EXTRA_FLAGS = ENV | PTEX | SMOOTH | APERTURE | SHUTTER | MOVING
@@ -209,8 +211,8 @@ def _wide_tables(scene):
     if scene.wide_stack > WIDE_STACK:
         raise ValueError(
             f"the scene's BVH needs a walk stack of {scene.wide_stack} "
-            f"entries; the path kernel holds {WIDE_STACK} (a deeper tree "
-            "than the kernel was built for)")
+            f"entries; the path kernel holds at most {WIDE_STACK} (a deeper "
+            "tree than the kernel was built for)")
     for name, cols in (("wide_pack", WIDE_ROW), ("tri_pack", 16),
                        ("tri_shade", 16), ("tri_aux", 16), ("mat_pack", 16)):
         t = getattr(scene, name)

@@ -269,3 +269,24 @@ def test_mixed_scenes_go_through_the_path_kernel(cuda):
     with pytest.raises(NotImplementedError):
         render_frame_fused(over, cam, cfg)
     assert path_kernel.LAUNCHES["dsrt_path_render"] == 2
+
+
+@pytest.mark.parametrize("fn", ["cos", "sin"])
+def test_exact_math_matches_float64_calls_on_every_input(cuda, fn):
+    from dsrt_tpu_torch.ops import exact_math
+    r = exact_math.check(fn, cuda)
+    assert r["vs_libdevice"] == 0 and r["vs_plain"] == 0
+
+
+def test_path_kernel_deep_stack_matches_plain_version(cuda):
+    from dsrt_tpu_torch.models import feature_scenes as fs
+    from dsrt_tpu_torch.models.materials import Material
+    from dsrt_tpu_torch.models.scene import SceneBuilder
+    scene = fs.nested_triangles(SceneBuilder, Material).build(device=cuda)
+    cfg = RenderConfig(width=32, height=18, spp=2, max_depth=6)
+    cam = make_camera((0.0, 0.0, 2.0), (0.0, 0.0, -1.0), vfov=50, width=32,
+                      height=18, device=cuda)
+    assert 64 < scene.wide_stack <= path_kernel.WIDE_STACK
+    acc_k, n_k = path_kernel.path_render(scene, cam, cfg)
+    acc_p, n_p = path_kernel.path_render_plain(scene, cam, cfg, 2)
+    assert torch.equal(acc_k, acc_p) and int(n_k) == int(n_p)

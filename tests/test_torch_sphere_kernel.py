@@ -58,12 +58,15 @@ def test_matches_jax_sphere_kernel_in_interpret_mode(name):
 def test_parameter_vector_layout():
     """sph stride 8 (c0, r, mat, c2), med stride 15, lit stride 4, the
     19-float camera, then Ldir normalised by a reciprocal multiply,
-    radiance and shadow bias (pallas_sphere.trace_fused_spheres)."""
+    radiance and shadow bias (pallas_sphere.trace_fused_spheres): the
+    floats the kernel gets from `scene_params` with the camera vector in
+    its slot."""
     s = tpresets.volumetric_scene(device="cpu")
     cfg = dataclasses.replace(CFG, aperture=0.3)
     cam = make_camera(*LOOK, vfov=50, width=32, height=16, aperture=0.3,
                       device="cpu")
-    vec = sk.pack_params(s, cam, cfg)
+    vec = sk.scene_params(s, cfg).clone()
+    vec[sk.CAM_AT:sk.CAM_AT + 19] = cam.vector()
     assert vec.numel() == sk.PARAM_LEN == 247 and vec.dtype == torch.float32
     ns = s.n_spheres
     sph = vec[:8 * sk.MAX_SPH].reshape(sk.MAX_SPH, 8)
@@ -87,6 +90,20 @@ def test_parameter_vector_layout():
     assert vec[239:242].tolist() == [float(c) for c in sd]
     assert torch.equal(vec[242:245], s.sun_radiance)
     assert float(vec[245]) == np.float32(cfg.shadow_bias)
+
+
+def test_scene_vector_is_packed_once_per_scene_and_sun():
+    """The wrapper's vector (all but the camera) is packed on the host
+    once and kept with the scene, with the camera's slot zero; a new sun
+    or shadow bias repacks it."""
+    s = tpresets.volumetric_scene(device="cpu")
+    v = sk.scene_params(s, CFG)
+    assert sk.scene_params(s, CFG) is v
+    assert not v[sk.CAM_AT:sk.CAM_AT + 19].any()
+    turned = sk.scene_params(s.with_sun((0.0, 0.0, 1.0)), CFG)
+    assert turned is not v and not torch.equal(turned[239:242], v[239:242])
+    biased = sk.scene_params(s, dataclasses.replace(CFG, shadow_bias=0.01))
+    assert biased is not v and float(biased[245]) == np.float32(0.01)
 
 
 def test_launch_flags_follow_the_reference():

@@ -7,7 +7,10 @@ The JAX side runs op by op (jit disabled), as in test_torch_trace.py.  The
 cube mesh has shared edges and vertices at integer coordinates, flat
 faces (whose padded leaf boxes poke out of their parents' boxes, so the
 packer's containment rule is exercised) and rays aimed exactly at its
-vertices and edges, whose triangles then tie in t bit for bit.
+vertices and edges, whose triangles then tie in t bit for bit.  The
+nested triangles (models/feature_scenes.py `nested_triangles`) grow a tree
+whose walk needs more than 64 stack entries (the most the path kernel
+held before it took the TPU kernel's 256).
 """
 
 import dataclasses
@@ -18,9 +21,13 @@ import numpy as np
 import pytest
 import torch
 
+import dsrt_tpu.models.materials as jmaterials
+import dsrt_tpu.models.scene as jscene_mod
 import dsrt_tpu.ops.trace as jtrace
 from dsrt_tpu.models.mesh_gen import iss_standin_scene as jscene
 from dsrt_tpu.ops.linalg import V3 as JV3
+from dsrt_tpu_torch.config import RenderConfig
+from dsrt_tpu_torch.models import feature_scenes as fs
 from dsrt_tpu_torch.models.materials import Material
 from dsrt_tpu_torch.models.mesh_gen import iss_standin_scene
 from dsrt_tpu_torch.models.obj import MeshData
@@ -63,8 +70,12 @@ def _cube_scene():
 
 def _scene(name):
     if name not in _cache:
-        _cache[name] = (iss_standin_scene(detail=4, device="cpu")
-                        if name == "standin4" else _cube_scene())
+        _cache[name] = {
+            "standin4": lambda: iss_standin_scene(detail=4, device="cpu"),
+            "cube": _cube_scene,
+            "nested": lambda: fs.nested_triangles(
+                SceneBuilder, Material, sun=False).build(device="cpu"),
+        }[name]()
     return _cache[name]
 
 
@@ -105,9 +116,27 @@ def _tie_rays():
             np.asarray(d, np.float32).T.copy())
 
 
+def _axis_rays(n, seed):
+    """Rays from near (0, 0, 2) towards the nested triangles' common
+    centre, each crossing dozens of them."""
+    rng = np.random.default_rng(seed)
+    o = np.zeros((3, n))
+    o[0:2] = rng.normal(scale=0.05, size=(2, n))
+    o[2] = 2.0
+    d = np.zeros((3, n))
+    d[0:2] = rng.normal(scale=0.02, size=(2, n))
+    d[2] = -1.0
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    return o.astype(np.float32), d.astype(np.float32)
+
+
 def _rays(name):
     if name == "standin4":
         return _random_rays(40.0, (0.0, 0.0, 0.0), 5)
+    if name == "nested":
+        o, d = _random_rays(1.0, (0.0, 0.0, -0.25), 8)
+        oa, da = _axis_rays(N // 4, 9)
+        return np.concatenate([o, oa], 1), np.concatenate([d, da], 1)
     o, d = _random_rays(CUBE, (CUBE / 2,) * 3, 6)
     ot, dt = _tie_rays()
     return np.concatenate([o, ot], 1), np.concatenate([d, dt], 1)
@@ -146,7 +175,7 @@ def _brute_ties(scene, o, d):
 
 
 @pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
-@pytest.mark.parametrize("name", ["standin4", "cube"])
+@pytest.mark.parametrize("name", ["standin4", "cube", "nested"])
 def test_wide_walk_equals_lane_traverse(name, any_hit):
     scene = _scene(name)
     o, d = _rays(name)
@@ -299,6 +328,50 @@ def test_flagship_stack_fits_the_kernel():
     scene = iss_standin_scene(detail=12, device="cpu")
     assert scene.n_tris > 50000
     assert scene.wide_stack <= path_kernel.WIDE_STACK
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+def test_deep_tree_walk_equals_jax_lane_traverse(any_hit):
+    """On the nested triangles, built by the JAX package's builder: the
+    same tables as the port's, and the wide walk hit for hit equal to
+    JAX's binary walk."""
+    js = fs.nested_triangles(jscene_mod.SceneBuilder, jmaterials.Material,
+                             sun=False).build()
+    ref = scene_from_reference(js, device="cpu")
+    port = _scene("nested")
+    assert 64 < ref.wide_stack <= path_kernel.WIDE_STACK
+    for name in ("bvh_pack", "thr_pack", "tri_pack", "wide_pack"):
+        assert np.array_equal(getattr(ref, name).numpy().view(np.uint32),
+                              getattr(port, name).numpy().view(np.uint32))
+    o, d = _rays("nested")
+    o, d = o[:, -2048:], d[:, -2048:]
+    act = np.ones(o.shape[1], bool)
+    act[::5] = False
+    with jax.disable_jit():
+        want = jtrace.lane_traverse(js, JV3(*map(jnp.asarray, o)),
+                                    JV3(*map(jnp.asarray, d)), 1e-3, 1e9,
+                                    jnp.asarray(act), any_hit=any_hit)
+    got = wide_walk_plain(ref, _t(o), _t(d), 1e-3, 1e9,
+                          torch.from_numpy(act), any_hit=any_hit)
+    assert (np.asarray(want[3]) >= 0).sum() > 1000
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_wrapper_takes_trees_up_to_the_tpu_kernels_stack():
+    """Trees up to WIDE_STACK (256, the TPU kernel's) pass the stack check
+    (and fail only on the CPU tensors after it), the triangle-only
+    instance 0 among them; deeper ones are refused."""
+    deep = _scene("nested")
+    assert path_kernel.WIDE_STACK == 256
+    assert 64 < deep.wide_stack
+    assert path_kernel.instance_of(deep, RenderConfig()) == 0
+    for stack in (deep.wide_stack, path_kernel.WIDE_STACK):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            path_kernel._wide_tables(dataclasses.replace(deep,
+                                                         wide_stack=stack))
+    with pytest.raises(ValueError, match="holds at most 256"):
+        path_kernel._wide_tables(dataclasses.replace(deep, wide_stack=257))
 
 
 def test_wrapper_refuses_a_tree_deeper_than_the_stack():
