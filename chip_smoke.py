@@ -9,8 +9,14 @@ plain PyTorch version, renders the flagship frame (textured ISS stand-in,
 sphere kernel against its plain version on five sphere scenes, and renders
 the two full-size sphere frames (rtiow 400x225 at 64 spp, volumetric
 800x450 at 32 spp) through `render_frame_fused`.  Then the split pipeline
-(phases 9-12): the two traversal kernels against their plain versions on
-2^20 rays, the wavefront and queue loops on the card against the same
+(phases 9-12): the traversal kernels (closest, any-hit and sun queries)
+against their plain versions on 2^20 rays, on the 8-ary walk and on the
+binary one that deeper trees take, on the stand-in and on the nested
+triangles; their design phase (the kernels at the shapes the split waves
+launch, recorded from a split frame, and at the 2^20 rays: active share,
+node visits per query of both walks, bound, both walks' times,
+registers and the device ops of a launch; tools/path_probe.py); the
+wavefront and queue loops on the card against the same
 loops on CPU copies, the full-size split-path frames (the untextured 51k
 stand-in and the mixed stand-in with three spheres, 800x450, 32 spp)
 through `render_frame_wavefront`, and the driver in wavefront and auto
@@ -142,7 +148,9 @@ def table_bytes(scene, names) -> int:
 def register_counts(log: str) -> dict:
     """Registers per kernel from nvcc's -Xptxas -v output: the path
     kernel's instances as "path_render_kernel<M>" (M its template bits),
-    the others by name."""
+    the traversal kernel's as "traverse_kernel<Q,W>" (Q the query: 0
+    closest, 1 any hit, 2 sun; W 1 for the 8-ary walk), the others by
+    name."""
     import re
     regs, name = {}, None
     for ln in log.splitlines():
@@ -150,36 +158,46 @@ def register_counts(log: str) -> dict:
         if m:
             mangled = m.group(1)
             inst = re.search(r"path_render_kernelILj(\d+)E", mangled)
+            walk = re.search(r"traverse_kernelILi(\d)ELb(\d)E", mangled)
             name = (f"path_render_kernel<{inst.group(1)}>" if inst else
-                    next((k for k in ("sphere_render_kernel",
-                                      "traverse_sun_kernel",
-                                      "traverse_kernelILb0",
-                                      "traverse_kernelILb1")
-                          if k in mangled), mangled))
+                    f"traverse_kernel<{walk.group(1)},{walk.group(2)}>"
+                    if walk else
+                    "sphere_render_kernel" if "sphere_render_kernel" in
+                    mangled else mangled)
             continue
         m = re.search(r"Used (\d+) registers", ln)
         if m and name is not None:
-            regs[name.replace("traverse_kernelILb0", "traverse_kernel<0>")
-                 .replace("traverse_kernelILb1", "traverse_kernel<1>")] = \
-                int(m.group(1))
+            regs[name] = int(m.group(1))
             name = None
     return regs
 
 
-def random_rays(n: int, seed: int, device):
-    """Rays from a shell around the station: half aimed at it, half in
-    random directions (numpy, from a seed)."""
+def walk_scenes(scene):
+    """(walk, scene) pairs that take each walk of the traversal kernels:
+    the scene itself (the 8-ary walk, its stack fits), and a copy that
+    claims a stack deeper than the wide walk holds (the binary walk)."""
+    from dsrt_tpu_torch.ops import traverse as tv
+    deep = dataclasses.replace(scene, wide_stack=tv.WIDE_STACK + 1)
+    out = [(tv.walk_of(scene), scene), (tv.walk_of(deep), deep)]
+    require([w for w, _ in out] == list(tv.WALKS), "walk rule")
+    return out
+
+
+def nested_rays(n: int, seed: int, device):
+    """Rays from near (0, 0, 2) into the nested triangles, most crossing
+    dozens of them (numpy, from a seed)."""
     from dsrt_tpu_torch.ops.linalg import V3
     rng = np.random.default_rng(seed)
-    o = rng.normal(size=(3, n))
-    o *= (60.0 + 140.0 * rng.random(n)) / np.linalg.norm(o, axis=0)
-    tgt = rng.normal(scale=15.0, size=(3, n))
-    d = rng.normal(size=(3, n))
-    d[:, : n // 2] = tgt[:, : n // 2] - o[:, : n // 2]
+    o = np.zeros((3, n))
+    o[0:2] = rng.normal(scale=0.3, size=(2, n))
+    o[2] = 2.0
+    d = rng.normal(scale=0.2, size=(3, n))
+    d[2] = -1.0
     d /= np.linalg.norm(d, axis=0, keepdims=True)
-    o, d = o.astype(np.float32), d.astype(np.float32)
-    return (V3(*(torch.from_numpy(c).to(device) for c in o)),
-            V3(*(torch.from_numpy(c).to(device) for c in d)))
+    return (V3(*(torch.from_numpy(c.astype(np.float32)).to(device)
+                 for c in o)),
+            V3(*(torch.from_numpy(c.astype(np.float32)).to(device)
+                 for c in d)))
 
 
 def deep_stack_phase(dev, regs: dict) -> dict:
@@ -478,6 +496,68 @@ def profile_frame(fn):
     return by_name, busy, wall, host
 
 
+def traverse_design_phase(dev, stand) -> dict:
+    """Phase "9 design": the traversal kernels at the shapes the split
+    waves launch (the stand-in's split frame, 800x450 spp32 depth50
+    spp_batch 4: its second full-width wave, its last full-width wave and
+    its first drain wave, recorded as the frame runs) and at 2^20 random
+    rays: active share, binary and wide node visits per query (a CPU
+    sample), the bound from the binary walk's work, and the wrapper
+    call's time (CUDA events) and the kernel's device time (profiler) of
+    the kept 8-ary walk and of the binary walk in the same process; with
+    registers, stack bytes and resident blocks of each instance and the
+    device ops of one launch.  Returns each query's rows."""
+    from dsrt_tpu_torch.ops import traverse as tv
+    from dsrt_tpu_torch.tools import path_probe as pp
+    t0 = time.perf_counter()
+    _, cam, cfg = pp.split_frame(dev, stand)
+    records = pp.record_waves(stand, cam, cfg) + pp.random_records(dev)
+    for rec in records:
+        rec["work"] = pp.wave_work(stand, rec, sample=1024)
+    res = pp.traverse_resources()
+    phase("9 design", "instances: " + "; ".join(
+        f"{k} {v.get('registers', '?')} registers, {v.get('stack', '?')} "
+        f"bytes stack, {v.get('spill', '?')} spilled, "
+        f"{v.get('blocks_per_sm', '?')} blocks of 256 per SM"
+        for k, v in sorted(res.items())))
+    out = {q: {"instances": {k: v for k, v in res.items()
+                             if k.startswith(q + "/")}, "shapes": []}
+           for q in tv.QUERIES}
+    for rec in records:
+        w = rec["work"]
+        row = {"wave": rec["wave"], "lanes": w["lanes"],
+               "active_share": w["active_share"],
+               "binary_visits_per_query": w["binary_per_query"],
+               "wide_visits_per_query": w["wide_per_query"],
+               "bound_ms": w["bound_ms"], "bound_by": w["bound_by"]}
+        for walk, sc in walk_scenes(stand):
+            fn = pp.traverse_call(sc, rec)
+            row[walk] = {"ms": event_ms(fn, 10),
+                         "kernel_ms": pp.kernel_device_ms(fn, 10)}
+            require(row[walk]["kernel_ms"] > 0,
+                    f"{rec['kind']} at {rec['wave']} ({walk} walk): no "
+                    f"kernel time recorded")
+        if rec["wave"] == "late full width":
+            row["launch_ops"] = pp.launch_ops(pp.traverse_call(stand, rec))
+            require(row["launch_ops"]["device_ops"] >= 1,
+                    f"{rec['kind']} at {rec['wave']}: no device op recorded")
+        phase("9 design",
+              f"{rec['kind']} at {rec['wave']} ({w['lanes']} lanes, "
+              f"{w['active_share']:.1%} active): visits per query binary "
+              f"{w['binary_per_query']:.2f}, wide {w['wide_per_query']:.2f} "
+              f"({w['sample']} sampled); bound {w['bound_ms']:.4f} ms by "
+              f"{w['bound_by']}; wide walk {row['wide']['ms']:.4f} ms "
+              f"(kernel {row['wide']['kernel_ms']:.4f}), binary walk "
+              f"{row['binary']['ms']:.4f} ms (kernel "
+              f"{row['binary']['kernel_ms']:.4f})"
+              + (f"; one launch issues {row['launch_ops']['device_ops']} "
+                 f"device ops ({', '.join(row['launch_ops']['device_names'])})"
+                 if "launch_ops" in row else ""))
+        out[rec["kind"]]["shapes"].append(row)
+    phase("9 design", f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def split_phases(dev, poses) -> dict:
     """Phases 9-12, the split pipeline.  Returns the traversal kernels'
     entries of the JSON line."""
@@ -488,9 +568,9 @@ def split_phases(dev, poses) -> dict:
                                                 iss_standin_scene)
     from dsrt_tpu_torch.ops import path_kernel, traverse as tv, wavefront
     from dsrt_tpu_torch.ops.camera import point_camera_at
-    from dsrt_tpu_torch.ops.linalg import V3
     from dsrt_tpu_torch.ops.shade import sun_direction
     from dsrt_tpu_torch.ops.trace import walk_counter
+    from dsrt_tpu_torch.tools.path_probe import random_rays
     from dsrt_tpu_torch.render import (lane_layout, render_frame_queue,
                                        render_frame_wavefront, tonemap)
     from dsrt_tpu_torch.utils.pose import write_pose_file
@@ -505,74 +585,78 @@ def split_phases(dev, poses) -> dict:
           f"{time.perf_counter() - t0:.1f} s")
     require(stand.n_tris > 50000 and mixed.n_spheres == 3, "split scenes")
 
-    # 9. the traversal kernels against their plain versions, 2^20 rays
+    # 9. the traversal kernels against their plain versions, 2^20 rays,
+    # on both walks, on the stand-in and on the nested triangles (a walk
+    # that needs a deep stack)
+    from dsrt_tpu_torch.models import feature_scenes as fs
+    from dsrt_tpu_torch.models.materials import Material
+    from dsrt_tpu_torch.models.scene import SceneBuilder
     tv.reset_launches()
     n = 1 << 20
-    ro, rd = random_rays(n, 11, dev)
     act = torch.from_numpy(np.random.default_rng(12).random(n) > 0.1).to(dev)
-    sdir = sun_direction(stand)
+    nested = fs.nested_triangles(SceneBuilder, Material).build(device=dev)
     bias = 1e-3
     out = {}
-    for name, any_hit in (("dsrt_traverse", False), ("any_hit", True)):
-        got = tv.traverse(stand, ro, rd, act, 1e-3, 1e9, any_hit=any_hit)
-        with walk_counter() as wc:
-            want = tv.traverse_plain(stand, ro, rd, act, 1e-3, 1e9,
-                                     any_hit=any_hit)
-        hits = int((want[3] >= 0).sum())
-        if any_hit:
-            mism = int(((got[3] >= 0) != (want[3] >= 0)).sum())
-            err = 0.0
-        else:
-            mism = int(((got[0] != want[0]) | (got[1] != want[1])
-                        | (got[2] != want[2]) | (got[3] != want[3])).sum())
-            err = float((got[0] - want[0]).abs().max())
-        ms = event_ms(lambda: tv.traverse(stand, ro, rd, act, 1e-3, 1e9,
-                                          any_hit=any_hit), 10)
-        plain = event_ms(lambda: tv.traverse_plain(stand, ro, rd, act, 1e-3,
-                                                   1e9, any_hit=any_hit), 1)
-        bound, by = tv.bound_ms(stand, n, int(wc["visits"]),
-                                int(wc["tests"]))
-        what = "hit masks" if any_hit else "(t,u,v,tri)"
-        phase("9 traverse", f"{'any-hit' if any_hit else 'closest'}: 2^20 "
-                            f"rays, {int(act.sum())} active, {hits} hits, "
-                            f"{mism} mismatches ({what}; "
-                            f"tolerance: none); kernel {ms:.3f} ms, plain "
-                            f"{plain:.1f} ms, bound {bound:.4f} ms by {by} "
-                            f"({int(wc['visits'])} visits, "
-                            f"{int(wc['tests'])} tests)")
-        require(mism == 0 and hits > 1000, f"dsrt_traverse ({name}) "
-                                           "disagrees with its plain version")
-        out[name] = dict(ms=ms, plain_ms=plain, max_abs_err=err,
-                         bound_ms=bound, bound_by=by)
-    got = tv.traverse_with_sun(stand, ro, rd, act, 1e-3, 1e9, sdir, bias)
-    with walk_counter() as wc:
-        want = tv.traverse_with_sun_plain(stand, ro, rd, act, 1e-3, 1e9,
-                                          sdir, bias)
-    hitm = want[3] >= 0
-    mism = int(((got[0] != want[0]) | (got[1] != want[1])
-                | (got[2] != want[2]) | (got[3] != want[3])).sum())
-    bmism = int((got[4] != want[4])[hitm].sum())
-    ms = event_ms(lambda: tv.traverse_with_sun(stand, ro, rd, act, 1e-3, 1e9,
-                                               sdir, bias), 10)
-    plain = event_ms(lambda: tv.traverse_with_sun_plain(
-        stand, ro, rd, act, 1e-3, 1e9, sdir, bias), 1)
-    bound, by = tv.bound_ms(stand, n, int(wc["visits"]), int(wc["tests"]),
-                            with_sun=True)
-    phase("9 traverse_sun", f"2^20 rays, {int(hitm.sum())} hits, "
-                            f"{int(want[4][hitm].sum())} blocked; {mism} "
-                            f"mismatches in (t,u,v,tri), {bmism} in blocked "
-                            f"on hit lanes (tolerance: none); kernel "
-                            f"{ms:.3f} ms, plain {plain:.1f} ms, bound "
-                            f"{bound:.4f} ms by {by}")
-    require(mism == 0 and bmism == 0 and 0 < int(want[4][hitm].sum())
-            < int(hitm.sum()), "dsrt_traverse_sun disagrees with its "
-                               "plain version")
-    out["dsrt_traverse_sun"] = dict(ms=ms, plain_ms=plain,
-                                    max_abs_err=float((got[0] - want[0])
-                                                      .abs().max()),
-                                    bound_ms=bound, bound_by=by)
+    for sname, base, (ro, rd) in (
+            ("stand-in", stand, random_rays(n, 11, dev)),
+            ("nested triangles", nested, nested_rays(n, 13, dev))):
+        sdir = sun_direction(base)
 
-    micro = dict(tv.LAUNCHES)
+        def query_fn(sc, query, plain=False):
+            if query == "sun":
+                fn = tv.traverse_with_sun_plain if plain else \
+                    tv.traverse_with_sun
+                return lambda: fn(sc, ro, rd, act, 1e-3, 1e9, sdir, bias)
+            fn = tv.traverse_plain if plain else tv.traverse
+            return lambda: fn(sc, ro, rd, act, 1e-3, 1e9,
+                              any_hit=query == "any")
+
+        for query in tv.QUERIES:
+            with walk_counter() as wc:
+                want = query_fn(base, query, plain=True)()
+            plain = (event_ms(query_fn(base, query, plain=True), 1)
+                     if sname == "stand-in" else None)
+            hitm = want[3] >= 0
+            hits = int(hitm.sum())
+            bound, by = tv.bound_ms(
+                base, n, tv.ray_bytes(ro, rd, int(act.sum())),
+                int(wc["visits"]), int(wc["tests"]), with_sun=query == "sun")
+            for walk, sc in walk_scenes(base):
+                got = query_fn(sc, query)()
+                if query == "any":
+                    mism, err = int(((got[3] >= 0) != hitm).sum()), 0.0
+                else:
+                    mism = int(((got[0] != want[0]) | (got[1] != want[1])
+                                | (got[2] != want[2])
+                                | (got[3] != want[3])).sum())
+                    err = float((got[0] - want[0]).abs().max())
+                bmism = (int((got[4] != want[4])[hitm].sum())
+                         if query == "sun" else 0)
+                ms = event_ms(query_fn(sc, query), 10)
+                blocked = (f", {int(want[4][hitm].sum())} blocked, {bmism} "
+                           f"mismatches in blocked on hit lanes"
+                           if query == "sun" else "")
+                phase("9 traverse",
+                      f"{sname} {query} {walk} walk: 2^20 rays, "
+                      f"{int(act.sum())} active, {hits} hits, {mism} "
+                      f"mismatches ({'hit masks' if query == 'any' else '(t,u,v,tri)'}"
+                      f"{blocked}; tolerance: none); kernel {ms:.3f} ms"
+                      + (f", plain {plain:.1f} ms" if plain else "")
+                      + f", bound {bound:.4f} ms by {by} (binary walk: "
+                        f"{int(wc['visits'])} visits, {int(wc['tests'])} "
+                        f"tests)")
+                require(mism == 0 and bmism == 0 and hits > 1000,
+                        f"{query} query ({walk} walk) disagrees with its "
+                        f"plain version on the {sname}")
+                if query == "sun":
+                    require(0 < int(want[4][hitm].sum()) < hits,
+                            f"sun query on the {sname}: no blocked mix")
+                if sname == "stand-in":
+                    out[(query, walk)] = dict(ms=ms, plain_ms=plain,
+                                              max_abs_err=err, bound_ms=bound,
+                                              bound_by=by)
+    micro = dict(tv.INSTANCE_LAUNCHES)
+    design = traverse_design_phase(dev, stand)
     # 10. the wave loops on the card against the same loops on CPU copies
     cfg_s = RenderConfig(width=64, height=36, spp=4, max_depth=12)
     cam_s = point_camera_at(SUNLIT_CAM, vfov=cfg_s.vfov, width=64,
@@ -681,6 +765,7 @@ def split_phases(dev, poses) -> dict:
         require(rays >= 800 * 450 * 32, "ray count below one per sample")
         require(sum(launched.values()) > 0, "no traversal launch")
     launches = dict(tv.LAUNCHES)
+    split_launches = dict(tv.INSTANCE_LAUNCHES)
     require(launches["dsrt_traverse"] > 0 and launches["dsrt_traverse_sun"]
             > 0, "a traversal kernel was not launched by the split frames")
     t0 = time.perf_counter()
@@ -726,20 +811,25 @@ def split_phases(dev, poses) -> dict:
             "auto mode did not choose the path kernel for the mixed scene")
 
     entries = {}
-    for name, src_name in (("dsrt_traverse", "dsrt_traverse"),
-                           ("dsrt_traverse_sun", "dsrt_traverse_sun")):
-        e = out[src_name]
+    for name, query, line in (("dsrt_traverse", "closest", 386),
+                              ("dsrt_traverse any-hit", "any", 386),
+                              ("dsrt_traverse_sun", "sun", 399)):
+        e = out[(query, "wide")]
         entries[name] = {
             "name": name, "route": "cuda",
             "source": "dsrt_tpu_torch/csrc/traverse_kernel.cu",
-            "replaces": ("dsrt_tpu/ops/pallas_trace.py:386"
-                         if name == "dsrt_traverse"
-                         else "dsrt_tpu/ops/pallas_trace.py:399"),
-            "launches": launches[name], "max_abs_err": e["max_abs_err"],
+            "replaces": f"dsrt_tpu/ops/pallas_trace.py:{line}",
+            "launches": sum(split_launches[(query, w)] for w in tv.WALKS),
+            "max_abs_err": e["max_abs_err"],
             "ms": e["ms"], "plain_ms": e["plain_ms"],
             "bound_ms": e["bound_ms"], "bound_by": e["bound_by"],
             "library_ms": None, "shape": "2^20 rays, 51k-triangle stand-in",
-            "launches_microbenchmark": micro[name],
+            "walk": "wide", "binary_walk_ms": out[(query, "binary")]["ms"],
+            "launches_by_walk": {w: split_launches[(query, w)]
+                                 for w in tv.WALKS},
+            "launches_microbenchmark": sum(micro[(query, w)]
+                                           for w in tv.WALKS),
+            "design": design[query],
             "frames": {k: {"frame_ms": v["secs"] * 1e3, "rays": v["rays"],
                            "mrays_per_s": v["rays"] / v["secs"] / 1e6,
                            "kernel_device_ms": v["kernel_ms"],
@@ -748,7 +838,6 @@ def split_phases(dev, poses) -> dict:
                            "waves": v["waves"], "host_syncs": v["syncs"],
                            "host_ms": v["host"]}
                        for k, v in frames.items()}}
-    entries["dsrt_traverse"]["any_hit"] = out["any_hit"]
     return entries
 
 
@@ -956,6 +1045,7 @@ def main() -> int:
                                              roofline_ms, traverse)
     from dsrt_tpu_torch.render import (render_frame, render_frame_fused,
                                        tonemap)
+    from dsrt_tpu_torch.tools.path_probe import random_rays
 
     dev = torch.device("cuda")
     os.makedirs(OUT, exist_ok=True)
@@ -998,21 +1088,25 @@ def main() -> int:
                    f"{time.perf_counter() - t0:.1f} s")
     kernels = {}
 
-    # 3. closest hit: kernel vs the plain walk, 2^20 rays, exact
+    # 3. closest hit: kernel vs the plain walk, 2^20 rays, exact, on the
+    # 8-ary walk and on the binary one (a scene deeper than its stack)
     ro, rd = random_rays(1 << 20, 3, dev)
     act = torch.ones(ro.x.shape, dtype=torch.bool, device=dev)
     micro3 = traverse_launches["dsrt_traverse"]
-    t_k = event_ms(lambda: traverse(scene, ro, rd, act, 1e-3, 1e9), 10)
     t_p = event_ms(lambda: lane_traverse(scene, ro, rd, 1e-3, 1e9, act), 1)
-    hit_k = traverse(scene, ro, rd, act, 1e-3, 1e9)
     hit_p = lane_traverse(scene, ro, rd, 1e-3, 1e9, act)
-    mism = int(((hit_k[3] != hit_p[3]) | (hit_k[0] != hit_p[0])
-                | (hit_k[1] != hit_p[1]) | (hit_k[2] != hit_p[2])).sum())
-    hits = int((hit_k[3] >= 0).sum())
-    phase("3 closest hit", f"2^20 rays, {hits} hits, {mism} mismatches in "
-                           f"(t,u,v,tri) (tolerance: exact); kernel "
-                           f"{t_k:.3f} ms, plain {t_p:.1f} ms")
-    require(mism == 0 and hits > 0, "closest-hit kernel disagrees")
+    hits = int((hit_p[3] >= 0).sum())
+    for walk, sc in walk_scenes(scene):
+        t_k = event_ms(lambda: traverse(sc, ro, rd, act, 1e-3, 1e9), 10)
+        hit_k = traverse(sc, ro, rd, act, 1e-3, 1e9)
+        mism = int(((hit_k[3] != hit_p[3]) | (hit_k[0] != hit_p[0])
+                    | (hit_k[1] != hit_p[1]) | (hit_k[2] != hit_p[2])).sum())
+        phase("3 closest hit", f"{walk} walk: 2^20 rays, {hits} hits, {mism} "
+                               f"mismatches in (t,u,v,tri) (tolerance: "
+                               f"exact); kernel {t_k:.3f} ms, plain "
+                               f"{t_p:.1f} ms")
+        require(mism == 0 and hits > 0, f"closest-hit kernel ({walk} walk) "
+                                        "disagrees")
     micro3 = traverse_launches["dsrt_traverse"] - micro3
 
     # 4. frame check: the path kernel vs the plain renderer on CPU copies
@@ -1194,7 +1288,8 @@ def main() -> int:
     # (the megakernels' frames, --mode auto's path) required that no
     # traversal kernel was launched
     kernels["dsrt_traverse"]["launches_microbenchmark"] += micro3
-    for walk_kernel in ("dsrt_traverse", "dsrt_traverse_sun"):
+    for walk_kernel in ("dsrt_traverse", "dsrt_traverse any-hit",
+                        "dsrt_traverse_sun"):
         kernels[walk_kernel]["launches_main_path"] = 0
     entry = kernels["dsrt_path_render"]
     entry["frames"] = mixed

@@ -42,8 +42,9 @@ namespace dsrt {
 constexpr int WIDE_ROW = 72;
 // stack entries a thread holds, as deep as the TPU kernel's wide walk
 // (pallas_path.py:470); ops/path_kernel.py refuses a scene whose
-// `wide_stack` (pack_wide's worst height) exceeds it, so no push can
-// overflow.  A walk touches only the entries up to its own depth.
+// `wide_stack` (pack_wide's worst height) exceeds it and ops/traverse.py
+// gives it the binary walk, so no push can overflow.  A walk touches
+// only the entries up to its own depth.
 constexpr int WIDE_STACK = 256;
 
 struct WideTables {
@@ -54,9 +55,14 @@ struct WideTables {
 };
 
 // Closest hit (any_hit = false) or first occluder (any_hit = true) in
-// [t_min, t_max], as walk.cuh's walk<kAnyHit> returns it.
-template <bool kAnyHit>
-__device__ WalkHit wide_walk(const WideTables& tb, f3 o, f3 d, float t_min, float t_max) {
+// [t_min, t_max], as walk.cuh's walk<kAnyHit> returns it.  kMode 0 and
+// 1: closest and any hit; 2: the query `any_hit` says, at run time (the
+// traversal kernel's sun query runs both of its walks through one
+// inlined walk, csrc/traverse_kernel.cu).
+template <int kMode>
+__device__ WalkHit wide_walk_mode(const WideTables& tb, f3 o, f3 d, float t_min, float t_max,
+                                  bool any_hit) {
+  const bool first_hit = kMode == 1 || (kMode == 2 && any_hit);
   WalkHit h{t_max, 0.0f, 0.0f, -1};
   if (tb.n_wide <= 0) return h;
   const float inv[3] = {1.0f / d.x, 1.0f / d.y, 1.0f / d.z};
@@ -139,7 +145,7 @@ __device__ WalkHit wide_walk(const WideTables& tb, f3 o, f3 d, float t_min, floa
           h.u = u;
           h.v = v;
           h.tri = r;
-          if (kAnyHit) {
+          if (first_hit) {
             h.t = t_min;
             return h;
           }
@@ -150,6 +156,12 @@ __device__ WalkHit wide_walk(const WideTables& tb, f3 o, f3 d, float t_min, floa
   }
   h.t = h.tri >= 0 ? closest : t_max;
   return h;
+}
+
+template <bool kAnyHit>
+__device__ __forceinline__ WalkHit wide_walk(const WideTables& tb, f3 o, f3 d, float t_min,
+                                             float t_max) {
+  return wide_walk_mode<kAnyHit ? 1 : 0>(tb, o, d, t_min, t_max, kAnyHit);
 }
 
 }  // namespace dsrt

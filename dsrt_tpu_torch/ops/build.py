@@ -4,7 +4,9 @@ The sources under dsrt_tpu_torch/csrc/ (path_kernel.cu and
 path_kernel_prims.cu: dsrt_path_render and its instances, and
 dsrt_path_occupancy;
 sphere_kernel.cu: dsrt_sphere_render and dsrt_sphere_occupancy;
-traverse_kernel.cu: dsrt_traverse and dsrt_traverse_sun;
+traverse_kernel.cu: dsrt_traverse, the entry of both traversal kernels
+(`dsrt_traverse` and `dsrt_traverse_sun` in the wrappers' names), and
+dsrt_traverse_occupancy;
 exact_math_check.cu: dsrt_exact_math_check, the card's proof of
 exact_math.cuh) compile, one
 nvcc process per source, all started together, into objects that one
@@ -59,12 +61,12 @@ SIGNATURES = {
     "dsrt_sphere_occupancy": [_I],
     # fn n; in, got, lib, mismatches, stream
     "dsrt_exact_math_check": [_I] * 2 + [_P] * 5,
-    # bvh, thr, tri, ox oy oz dx dy dz, active, t, u, v, tri_out; n end
-    # tri_rows any_hit; t_min t_max; stream
-    "dsrt_traverse": [_P] * 14 + [_I] * 4 + [_F] * 2 + [_P],
-    # bvh, thr, tri, ox oy oz dx dy dz, active, sun (Ldir, bias), t, u, v,
-    # tri_out, blocked; n end tri_rows; t_min t_max; stream
-    "dsrt_traverse_sun": [_P] * 16 + [_I] * 3 + [_F] * 2 + [_P],
+    # bvh, thr, wide, tri, ox oy oz dx dy dz, active, sun (Ldir, bias),
+    # t, u, v, tri_out (int64), blocked (bool); n end n_wide tri_rows
+    # bcast kind wide; t_min t_max; stream
+    "dsrt_traverse": [_P] * 17 + [_I] * 7 + [_F] * 2 + [_P],
+    # instance -> resident blocks per SM (negative: a CUDA error)
+    "dsrt_traverse_occupancy": [_I],
 }
 
 _lib = None

@@ -206,6 +206,18 @@ def _ptr(t: torch.Tensor, dtype: torch.dtype, name: str) -> int:
     return t.data_ptr()
 
 
+def _check_tables(scene, names) -> None:
+    """Each named table must be a contiguous, 16-byte aligned float32
+    CUDA tensor of (rows, 16) floats, (rows, WIDE_ROW) for wide_pack."""
+    for name in names:
+        cols = WIDE_ROW if name == "wide_pack" else 16
+        t = getattr(scene, name)
+        _ptr(t, torch.float32, name)
+        if t.dim() != 2 or t.shape[1] != cols:
+            raise ValueError(f"{name}: expected (rows, {cols}), got "
+                             f"{tuple(t.shape)}")
+
+
 def _wide_tables(scene):
     """(wide_pack, tri_pack) pointers after the checks the kernel needs."""
     if scene.wide_stack > WIDE_STACK:
@@ -213,13 +225,8 @@ def _wide_tables(scene):
             f"the scene's BVH needs a walk stack of {scene.wide_stack} "
             f"entries; the path kernel holds at most {WIDE_STACK} (a deeper "
             "tree than the kernel was built for)")
-    for name, cols in (("wide_pack", WIDE_ROW), ("tri_pack", 16),
-                       ("tri_shade", 16), ("tri_aux", 16), ("mat_pack", 16)):
-        t = getattr(scene, name)
-        _ptr(t, torch.float32, name)
-        if t.dim() != 2 or t.shape[1] != cols:
-            raise ValueError(f"{name}: expected (rows, {cols}), got "
-                             f"{tuple(t.shape)}")
+    _check_tables(scene, ("wide_pack", "tri_pack", "tri_shade", "tri_aux",
+                          "mat_pack"))
     return scene.wide_pack.data_ptr(), scene.tri_pack.data_ptr()
 
 

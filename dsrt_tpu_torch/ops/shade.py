@@ -176,9 +176,11 @@ def light_sample(scene, k, p: V3, u1, u2):
 
 
 def bounce_step(scene, cfg, L: V3, thr: V3, ro: V3, rd: V3, state, alive,
-                rr_mask, sdir: V3, time=None, walk: str = "plain"):
+                rr_mask, sdir: V3, sun_vec, time=None, walk: str = "plain"):
     """One path segment for every lane, the scene queried by `walk` (see
-    the module docstring).  Returns
+    the module docstring); `sdir` is the sun direction and `sun_vec` the
+    caller's `traverse.sun_vector(sdir, cfg.shadow_bias)`, made once for
+    the fused sun query's launches.  Returns
     (L, thr, ro, rd, state, alive, rays traced by this segment)."""
     if walk not in WALKS:
         raise ValueError(f"walk must be one of {WALKS}, got {walk!r}")
@@ -205,7 +207,8 @@ def bounce_step(scene, cfg, L: V3, thr: V3, ro: V3, rd: V3, state, alive,
     query = scene_hit_flat if walk == "kernel" else scene_hit
     if fused:
         hit, sun_blocked = scene_hit_flat_sun(scene, ro, rd, t_min, t_max,
-                                              alive, sdir, cfg.shadow_bias)
+                                              alive, sdir, cfg.shadow_bias,
+                                              sun_vec)
     else:
         hit, state = query(scene, ro, rd, t_min, t_max, alive, state,
                            time=time)
@@ -338,9 +341,11 @@ def trace_paths(scene, cfg, ro: V3, rd: V3, state, active0, time=None,
     """Trace one sample per lane to completion.  Returns (clamp01(L),
     state, exact ray count: every closest-hit query plus every potential
     sun receiver).  `time` is the per-lane shutter time, or None."""
+    from dsrt_tpu_torch.ops.traverse import sun_vector
     check_scope(scene, cfg)
     if sdir is None:
         sdir = sun_direction(scene)
+    sun_vec = sun_vector(sdir, cfg.shadow_bias)
     zero = torch.zeros_like(ro.x)
     one = torch.ones_like(ro.x)
     L, thr = V3(zero, zero, zero), V3(one, one, one)
@@ -351,8 +356,8 @@ def trace_paths(scene, cfg, ro: V3, rd: V3, state, active0, time=None,
             break
         rr_mask = alive & (depth >= cfg.rr_start_depth)
         L, thr, ro, rd, state, alive, nr = bounce_step(
-            scene, cfg, L, thr, ro, rd, state, alive, rr_mask, sdir, time,
-            walk)
+            scene, cfg, L, thr, ro, rd, state, alive, rr_mask, sdir, sun_vec,
+            time, walk)
         nrays = nrays + nr
     return clamp01(L), state, nrays
 

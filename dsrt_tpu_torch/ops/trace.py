@@ -598,11 +598,12 @@ def scene_hit_flat(scene, ro: V3, rd: V3, t_min: float, t_max: float,
 
 
 def scene_hit_flat_sun(scene, ro: V3, rd: V3, t_min: float, t_max: float,
-                       active, sun_ldir: V3, shadow_bias: float):
+                       active, sun_ldir: V3, shadow_bias: float, sun):
     """Closest hit and the sun-shadow test in one traversal launch
     (`dsrt_traverse_sun` on CUDA tensors) for scenes of flat triangles
-    only; returns (Hit, blocked), `blocked` valid on hit lanes."""
+    only; returns (Hit, blocked), `blocked` valid on hit lanes.  `sun`:
+    the caller's `traverse.sun_vector(sun_ldir, shadow_bias)`."""
     from dsrt_tpu_torch.ops.traverse import traverse_with_sun
     t, u, v, tri, blocked = traverse_with_sun(
-        scene, ro, rd, active, t_min, t_max, sun_ldir, shadow_bias)
+        scene, ro, rd, active, t_min, t_max, sun_ldir, shadow_bias, sun)
     return hit_from_kernel(scene, ro, rd, t, u, v, tri, t_max), blocked

@@ -11,8 +11,15 @@ The CUDA kernels walk each ray's own octant, as `lane_traverse` does, so
 the plain versions are `lane_traverse` itself and results are equal ray
 for ray.
 
+The kernels walk the scene's 8-ary table `wide_pack` (csrc/wide_walk.cuh,
+whose plain spec `wide_walk_plain` equals `lane_traverse` ray for ray);
+a scene whose walk needs a deeper stack than the kernel holds
+(`Scene.wide_stack` > WIDE_STACK) takes the binary instance of the same
+kernels (csrc/walk.cuh), the same function: `walk_of` is the rule.
+
 Each wrapper takes its plain version for CPU tensors; for CUDA tensors it
-launches its kernel or raises.  LAUNCHES counts kernel launches.
+launches its kernel or raises.  LAUNCHES counts kernel launches and
+INSTANCE_LAUNCHES the launches of each (query, walk) instance.
 
 Any-hit queries return only a hit mask: `tri >= 0` is the contract, and
 `t`, `u`, `v` and the row of an any-hit are whatever the walk met first
@@ -25,22 +32,28 @@ import torch
 
 from dsrt_tpu_torch.ops import build
 from dsrt_tpu_torch.ops.linalg import V3, const, sqrt
-from dsrt_tpu_torch.ops.path_kernel import _ptr, _require_cuda
+from dsrt_tpu_torch.ops.path_kernel import (WIDE_STACK, _check_tables, _ptr,
+                                            _require_cuda)
 from dsrt_tpu_torch.ops.trace import lane_traverse
 
 LAUNCHES = {"dsrt_traverse": 0, "dsrt_traverse_sun": 0}
+QUERIES = ("closest", "any", "sun")
+WALKS = ("wide", "binary")
+INSTANCE_LAUNCHES = {(q, w): 0 for q in QUERIES for w in WALKS}
 
 # Work of one walk step, for the bound the card could reach (PERF.md):
 # the slab test is 3 axes x (2 sub + 2 mul + max + min) + the enter
 # compare; Moller-Trumbore with precomputed edges is 2 crosses (9 each),
 # 4 dots (5 each), the det test (2), one division, the t-vector (3 sub),
-# 3 scalings by 1/det and 7 range compares.
+# 3 scalings by 1/det and 7 range compares.  The bound counts the binary
+# walk's visits and tests whichever walk runs, so it reads the same work.
 SLAB_FLOPS = 19
 MT_FLOPS = 55
-# bytes a ray moves in and out: origin, direction (f32 x 6) and the
-# active byte in; t, u, v (f32) and the row (i32) out; +1 blocked byte
-RAY_BYTES = 41
-SUN_RAY_BYTES = 42
+# bytes every lane moves, active or not: the active byte in; t, u, v
+# (f32) and the row (int64, as the wrapper returns it) out; +1 blocked
+# byte.  An active lane reads its ray too (`ray_bytes`).
+LANE_BYTES = 21
+SUN_LANE_BYTES = 22
 # H100 SXM peaks (NVIDIA's data sheet, at the 700 W power limit)
 H100_F32_FLOPS = 67e12
 H100_BYTES_PER_S = 3.35e12
@@ -49,24 +62,31 @@ H100_BYTES_PER_S = 3.35e12
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for k in INSTANCE_LAUNCHES:
+        INSTANCE_LAUNCHES[k] = 0
 
 
-def _tables(scene):
-    """(bvh_pack, thr_pack, tri_pack) pointers after the checks the
-    traversal kernels need."""
-    dev = scene.device
-    if dev.type != "cuda":
-        raise ValueError(f"scene tables on {dev}, expected CUDA")
-    for name in ("bvh_pack", "thr_pack", "tri_pack", "tri_shade",
-                 "tri_aux", "mat_pack"):
-        t = getattr(scene, name)
-        _ptr(t, torch.float32, name)
-        if t.dim() != 2 or t.shape[1] != 16:
-            raise ValueError(f"{name}: expected (rows, 16), got "
-                             f"{tuple(t.shape)}")
-    if scene.bvh_pack.shape[0] < scene.n_nodes:
+def walk_of(scene) -> str:
+    """The walk the kernels take for `scene`: "wide" (the 8-ary walk)
+    when its worst stack height fits the kernel's WIDE_STACK entries,
+    else "binary" (the stackless walk, any depth)."""
+    return "wide" if scene.wide_stack <= WIDE_STACK else "binary"
+
+
+def _tables(scene, walk: str):
+    """(bvh_pack, thr_pack, wide_pack, tri_pack) pointers after the
+    checks the walk's instance needs (0 for a table it does not read; the
+    wide walk reads the binary root's box in bvh_pack row 0)."""
+    if scene.device.type != "cuda":
+        raise ValueError(f"scene tables on {scene.device}, expected CUDA")
+    if scene.bvh_pack.shape[0] < max(scene.n_nodes, 1):
         raise ValueError("bvh_pack has fewer rows than n_nodes")
-    return (scene.bvh_pack.data_ptr(), scene.thr_pack.data_ptr(),
+    if walk == "wide":
+        _check_tables(scene, ("bvh_pack", "wide_pack", "tri_pack"))
+        return (scene.bvh_pack.data_ptr(), 0, scene.wide_pack.data_ptr(),
+                scene.tri_pack.data_ptr())
+    _check_tables(scene, ("bvh_pack", "thr_pack", "tri_pack"))
+    return (scene.bvh_pack.data_ptr(), scene.thr_pack.data_ptr(), 0,
             scene.tri_pack.data_ptr())
 
 
@@ -98,49 +118,95 @@ def sun_origin(scene, ro: V3, rd: V3, t, tri, shadow_bias: float) -> V3:
 
 
 def traverse_with_sun_plain(scene, ro: V3, rd: V3, active, t_min: float,
-                            t_max: float, sun_ldir: V3, shadow_bias: float):
+                            t_max: float, sun_ldir: V3, shadow_bias: float,
+                            walk=lane_traverse):
     """Plain version of `traverse_with_sun`: the closest-hit walk, then an
-    any-hit walk toward the sun from `sun_origin` on the hit lanes."""
-    t, u, v, tri = lane_traverse(scene, ro, rd, t_min, t_max, active)
+    any-hit walk toward the sun from `sun_origin` on the hit lanes, both
+    by `walk` (the kernel's composition; `wide_walk_plain` gives its wide
+    instance's spec)."""
+    t, u, v, tri = walk(scene, ro, rd, t_min, t_max, active)
     hit = tri >= 0
     so = sun_origin(scene, ro, rd, t, tri, shadow_bias)
     sd = V3(*(c.to(t.device).expand(t.shape) for c in sun_ldir))
-    sh = lane_traverse(scene, so, sd, t_min, t_max, hit, any_hit=True)
+    sh = walk(scene, so, sd, t_min, t_max, hit, any_hit=True)
     return t, u, v, tri, sh[3] >= 0
 
 
+def sun_vector(sun_ldir: V3, shadow_bias: float) -> torch.Tensor:
+    """(Ldir, bias) as f32[4] on Ldir's device, the vector the sun kernel
+    reads from device memory (so a launch never waits on the stream);
+    a caller makes it once per frame."""
+    dev = sun_ldir.x.device
+    return torch.stack([sun_ldir.x.to(torch.float32),
+                        sun_ldir.y.to(torch.float32),
+                        sun_ldir.z.to(torch.float32),
+                        const(shadow_bias, dev)])
+
+
+def _one_value(c) -> bool:
+    """Whether a ray component is one value for every ray (0-dim, or
+    expanded from one): the kernel reads it from one address."""
+    return c.dim() == 0 or (c.numel() > 0 and all(s == 0
+                                                  for s in c.stride()))
+
+
 def _rays(ro: V3, rd: V3, active):
-    """Pointers of the flat contiguous float32 ray components, the tensors
-    that hold them, and the active bytes."""
-    comps = []
-    for name, c in zip(("ox", "oy", "oz", "dx", "dy", "dz"),
-                       list(ro) + list(rd)):
+    """Pointers of the six float32 ray components, the tensors that hold
+    them, and the bit mask of the components that are one value for
+    every ray (`_one_value`); a component of any other layout is copied
+    to a contiguous tensor."""
+    ptrs, keep, bcast = [], [], 0
+    for k, (name, c) in enumerate(zip(("ox", "oy", "oz", "dx", "dy", "dz"),
+                                      list(ro) + list(rd))):
         if c.dtype != torch.float32 or c.device != active.device:
             raise ValueError(f"{name}: expected float32 on {active.device}, "
                              f"got {c.dtype} on {c.device}")
-        comps.append(c.expand(active.shape).reshape(-1).contiguous())
-    act = active.reshape(-1).to(torch.uint8).contiguous()
-    return [c.data_ptr() for c in comps], comps, act
+        if _one_value(c):
+            bcast |= 1 << k
+        elif c.shape != active.shape or not c.is_contiguous():
+            c = c.expand(active.shape).contiguous()
+        ptrs.append(c.data_ptr())
+        keep.append(c)
+    return ptrs, keep, bcast
 
 
-def _outputs(n: int, device):
-    t = torch.empty(n, dtype=torch.float32, device=device)
-    return (t, torch.empty_like(t), torch.empty_like(t),
-            torch.empty(n, dtype=torch.int32, device=device))
-
-
-def _launch_common(scene, ro: V3, rd: V3, active):
+def _launch(scene, ro: V3, rd: V3, active, t_min: float, t_max: float,
+            query: str, sun=None):
+    """Launch the `query` instance of `dsrt_traverse` for the scene's
+    walk; returns (t, u, v, tri int64, blocked bool or None) shaped like
+    `active`."""
     dev = active.device
     _require_cuda(dev)
     if active.dtype != torch.bool:
         raise ValueError(f"active: expected torch.bool, got {active.dtype}")
     lib = build.load()
-    tables = _tables(scene)
-    ptrs, keep, act = _rays(ro, rd, active)
+    walk = walk_of(scene)
+    bvh, thr, wide, tri = _tables(scene, walk)
+    ptrs, keep, bcast = _rays(ro, rd, active)
+    act = active.contiguous()
     n = act.numel()
     if n >= 2 ** 31:
         raise ValueError("too many rays for one launch")
-    return lib, tables, ptrs, keep, act, n
+    t = torch.empty(act.shape, dtype=torch.float32, device=dev)
+    u, v = torch.empty_like(t), torch.empty_like(t)
+    tri_out = torch.empty(act.shape, dtype=torch.int64, device=dev)
+    blocked = (torch.empty(act.shape, dtype=torch.bool, device=dev)
+               if query == "sun" else None)
+    # a scene without triangles walks no tree: a miss at once
+    n_wide = int(scene.wide_pack.shape[0]) if scene.n_tris > 0 else 0
+    name = "dsrt_traverse_sun" if query == "sun" else "dsrt_traverse"
+    rc = lib.dsrt_traverse(
+        bvh, thr, wide, tri, *ptrs, act.data_ptr(),
+        0 if sun is None else _ptr(sun, torch.float32, "sun"), t.data_ptr(),
+        u.data_ptr(), v.data_ptr(), tri_out.data_ptr(),
+        0 if blocked is None else blocked.data_ptr(), n, int(scene.n_nodes),
+        n_wide, int(scene.tri_pack.shape[0]), bcast, QUERIES.index(query),
+        int(walk == "wide"), float(t_min), float(t_max),
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(lib, rc, name)
+    LAUNCHES[name] += 1
+    INSTANCE_LAUNCHES[(query, walk)] += 1
+    return t, u, v, tri_out, blocked
 
 
 def traverse(scene, ro: V3, rd: V3, active, t_min: float, t_max: float,
@@ -149,54 +215,29 @@ def traverse(scene, ro: V3, rd: V3, active, t_min: float, t_max: float,
     whether any triangle lies in [t_min, t_max]: only `tri >= 0` counts
     then); tri is a tri_pack row, -1 on a miss or an inactive lane (t =
     t_max).  CPU: the plain walk; CUDA: kernel `dsrt_traverse`, one
-    thread per ray."""
+    thread per ray, on the scene's walk (`walk_of`)."""
     if active.device.type == "cpu":
         return traverse_plain(scene, ro, rd, active, t_min, t_max, any_hit)
-    lib, (bvh, thr, tri), ptrs, keep, act, n = _launch_common(
-        scene, ro, rd, active)
-    t, u, v, tri_out = _outputs(n, act.device)
-    rc = lib.dsrt_traverse(
-        bvh, thr, tri, *ptrs, act.data_ptr(), t.data_ptr(), u.data_ptr(),
-        v.data_ptr(), tri_out.data_ptr(), n, int(scene.n_nodes),
-        int(scene.tri_pack.shape[0]), int(bool(any_hit)), float(t_min),
-        float(t_max), torch.cuda.current_stream(act.device).cuda_stream)
-    build.check(lib, rc, "dsrt_traverse")
-    LAUNCHES["dsrt_traverse"] += 1
-    shape = active.shape
-    return (t.reshape(shape), u.reshape(shape), v.reshape(shape),
-            tri_out.to(torch.int64).reshape(shape))
+    return _launch(scene, ro, rd, active, t_min, t_max,
+                   "any" if any_hit else "closest")[:4]
 
 
 def traverse_with_sun(scene, ro: V3, rd: V3, active, t_min: float,
-                      t_max: float, sun_ldir: V3, shadow_bias: float):
+                      t_max: float, sun_ldir: V3, shadow_bias: float,
+                      sun: torch.Tensor | None = None):
     """Closest hit plus the sun-shadow any-hit from the hit point:
     (t, u, v, tri, blocked), `blocked` meaningful on hit lanes only.
     `sun_ldir` is the normalised shadow direction, 0-dim tensors on the
-    rays' device (the kernel reads them with the bias from device memory,
-    so the launch never waits on the stream).  CPU: the plain version;
-    CUDA: kernel `dsrt_traverse_sun`, one thread per ray running both
-    walks."""
+    rays' device; `sun` is `sun_vector(sun_ldir, shadow_bias)` when the
+    caller made it once for the frame (else it is made here).  CPU: the
+    plain version; CUDA: kernel `dsrt_traverse_sun`, one thread per ray
+    running both walks."""
     if active.device.type == "cpu":
         return traverse_with_sun_plain(scene, ro, rd, active, t_min, t_max,
                                        sun_ldir, shadow_bias)
-    lib, (bvh, thr, tri), ptrs, keep, act, n = _launch_common(
-        scene, ro, rd, active)
-    t, u, v, tri_out = _outputs(n, act.device)
-    blocked = torch.empty(n, dtype=torch.uint8, device=act.device)
-    sun = torch.stack([sun_ldir.x, sun_ldir.y, sun_ldir.z,
-                       const(shadow_bias, act.device)]).to(torch.float32)
-    rc = lib.dsrt_traverse_sun(
-        bvh, thr, tri, *ptrs, act.data_ptr(), _ptr(sun, torch.float32, "sun"),
-        t.data_ptr(), u.data_ptr(), v.data_ptr(), tri_out.data_ptr(),
-        blocked.data_ptr(), n, int(scene.n_nodes),
-        int(scene.tri_pack.shape[0]), float(t_min), float(t_max),
-        torch.cuda.current_stream(act.device).cuda_stream)
-    build.check(lib, rc, "dsrt_traverse_sun")
-    LAUNCHES["dsrt_traverse_sun"] += 1
-    shape = active.shape
-    return (t.reshape(shape), u.reshape(shape), v.reshape(shape),
-            tri_out.to(torch.int64).reshape(shape),
-            blocked.to(torch.bool).reshape(shape))
+    if sun is None:
+        sun = sun_vector(sun_ldir, shadow_bias)
+    return _launch(scene, ro, rd, active, t_min, t_max, "sun", sun)
 
 
 def roofline_ms(flops: float, nbytes: float) -> tuple[float, str]:
@@ -208,14 +249,23 @@ def roofline_ms(flops: float, nbytes: float) -> tuple[float, str]:
     return (t_f, "operations") if t_f > t_b else (t_b, "bytes")
 
 
-def bound_ms(scene, n_rays: int, visits: int, tests: int,
+def ray_bytes(ro: V3, rd: V3, n_active: int) -> int:
+    """Bytes of the rays the kernel reads: each component once an active
+    ray, or once in all where it is one value for every ray (the shadow
+    query's sun direction).  An inactive lane reads no ray."""
+    return sum(4 if _one_value(c) else 4 * n_active for c in (*ro, *rd))
+
+
+def bound_ms(scene, lanes: int, rays_in: int, visits: int, tests: int,
              with_sun: bool = False) -> tuple[float, str]:
-    """roofline_ms of a traversal call: `visits` and `tests` are the
-    walk's node visits and triangle tests on these inputs
-    (trace.walk_counter); each ray moves in and out once, each table is
-    read once."""
+    """roofline_ms of a traversal call on `lanes` lanes: `rays_in` is
+    `ray_bytes` of its rays, `visits` and `tests` the walk's node visits
+    and triangle tests on these inputs (trace.walk_counter); each lane
+    moves LANE_BYTES (SUN_LANE_BYTES and the 16-byte sun vector with
+    the sun query), each table is read once."""
     flops = visits * SLAB_FLOPS + tests * MT_FLOPS
     tables = sum(getattr(scene, k).numel() * 4
                  for k in ("bvh_pack", "thr_pack", "tri_pack"))
-    return roofline_ms(flops, n_rays * (SUN_RAY_BYTES if with_sun
-                                        else RAY_BYTES) + tables)
+    lane = SUN_LANE_BYTES if with_sun else LANE_BYTES
+    return roofline_ms(flops, lanes * lane + rays_in + 16 * with_sun
+                       + tables)

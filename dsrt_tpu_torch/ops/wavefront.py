@@ -39,6 +39,7 @@ from dsrt_tpu_torch.ops import rng as rngmod
 from dsrt_tpu_torch.ops.camera import camera_rays
 from dsrt_tpu_torch.ops.linalg import V3, clamp01, const, where as vwhere
 from dsrt_tpu_torch.ops.shade import bounce_step, check_scope, sun_direction
+from dsrt_tpu_torch.ops.traverse import sun_vector
 
 SLOT_SEED_MIX = 0x9E3779B9
 
@@ -49,11 +50,12 @@ def _v3(shape, dev, value: float = 0.0) -> V3:
 
 
 def _frame_consts(scene, cfg):
+    sdir = sun_direction(scene)
     return dict(max_depth=cfg.resolved_max_depth(),
                 with_time=cfg.time1 > cfg.time0,
                 t0=float(np.float32(cfg.time0)),
                 dt=float(np.float32(cfg.time1 - cfg.time0)),
-                sdir=sun_direction(scene))
+                sdir=sdir, sun_vec=sun_vector(sdir, cfg.shadow_bias))
 
 
 def _start(c, need, cro, crd, state, k, ut=None):
@@ -78,8 +80,8 @@ def _segment(scene, cfg, c, k, walk: str):
     rr_mask = alive & (c["depth"] >= cfg.rr_start_depth)
     L, thr, ro, rd, state, alive2, nr = bounce_step(
         scene, cfg, c["L"], c["thr"], c["ro"], c["rd"], c["state"], alive,
-        rr_mask, k["sdir"], c.get("time") if k["with_time"] else None,
-        walk=walk)
+        rr_mask, k["sdir"], k["sun_vec"],
+        c.get("time") if k["with_time"] else None, walk=walk)
     c["depth"] = c["depth"] + alive.to(torch.int64)
     alive2 = alive2 & (c["depth"] < k["max_depth"])
     c.update(L=L, thr=thr, ro=ro, rd=rd, state=state, alive=alive2,

@@ -21,9 +21,19 @@
 - `visits_per_query`: the queries of a plain frame, recorded as the
   plain renderer issues them, replayed through `wide_walk_plain`:
   binary and wide node visits per query.
+- `record_waves`, `wave_work`, `traverse_probe`: the traversal kernels
+  at the shapes a split frame launches them (its second full-width wave,
+  its last full-width wave and its first drain wave, for the closest,
+  any-hit and sun queries) and at 2^20 random rays: active share, node
+  visits per query of both walks, the bound, the wrapper's time and the
+  kernel's device time; `traverse_resources` and `launch_ops`: registers,
+  stack bytes and resident blocks of each instance, and what one launch
+  issues.
 
     python3 dsrt_tpu_torch/tools/path_probe.py [--tree DIR] [--reps N]
-                                               [--cells | --sphere]
+                                               [--cells | --sphere |
+                                                --traverse [--frames]
+                                                [--waves FILE]]
 
 prints one JSON line for the flagship frame (800x450, 32 spp, max_depth
 50) rendered by the `dsrt_tpu_torch` package of DIR (default: this
@@ -36,7 +46,14 @@ for each sphere frame (rtiow 400x225 spp 64, volumetric 800x450 spp 32)
 in place of the flagship's: the sphere kernel's time (CUDA events), the
 frame wall of `render_frame_fused`, the device busy share of a profiled
 frame, the kernel's registers, and the stamped copy's tail share, pixel
-times and phase shares.  Needs one CUDA device.
+times and phase shares.  With --traverse, the traversal kernels of DIR
+on the recorded waves of the untextured stand-in's split frame (800x450,
+32 spp, depth 50, spp_batch 4) and on 2^20 random rays, one line each
+per walk (8-ary, binary), plus the instances' resources and
+one launch's ops; the records are saved to FILE (default
+build/traverse_waves.pt) by the first run and read by later ones, so
+two trees time the same rays.  --frames adds the split frames' walls.
+Needs one CUDA device.
 """
 
 from __future__ import annotations
@@ -480,6 +497,310 @@ def visits_per_query(scene, cam, cfg) -> dict:
     return out
 
 
+def random_rays(n: int, seed: int, device):
+    """Rays from a shell around the station: half aimed at it, half in
+    random directions (numpy, from a seed)."""
+    import torch
+
+    from dsrt_tpu_torch.ops.linalg import V3
+    rng = np.random.default_rng(seed)
+    o = rng.normal(size=(3, n))
+    o *= (60.0 + 140.0 * rng.random(n)) / np.linalg.norm(o, axis=0)
+    tgt = rng.normal(scale=15.0, size=(3, n))
+    d = rng.normal(size=(3, n))
+    d[:, : n // 2] = tgt[:, : n // 2] - o[:, : n // 2]
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    o, d = o.astype(np.float32), d.astype(np.float32)
+    return (V3(*(torch.from_numpy(c).to(device) for c in o)),
+            V3(*(torch.from_numpy(c).to(device) for c in d)))
+
+
+# the split frame whose waves the traversal probe records: the untextured
+# 51k stand-in at the flagship view, 800x450, 32 spp, depth 50,
+# spp_batch 4 (chip_smoke.py phase 11)
+SPLIT_VIEW = (40.0, 60.0, 190.0)
+QUERY_KINDS = ("closest", "any", "sun")
+# the recorded waves of each query kind: the second full-width wave
+# (the first bounce), the last full-width wave, the first drain wave
+WAVES = ("bounce 1", "late full width", "drain")
+
+
+def split_frame(device, scene=None):
+    """The split frame's scene (the untextured stand-in, unless given),
+    camera and config."""
+    from dsrt_tpu_torch.config import RenderConfig
+    from dsrt_tpu_torch.models.mesh_gen import iss_standin_scene
+    from dsrt_tpu_torch.ops.camera import point_camera_at
+    cfg = RenderConfig(width=800, height=450, spp=32, max_depth=50)
+    if scene is None:
+        scene = iss_standin_scene(detail=12, device="cpu").to(device)
+    cam = point_camera_at(SPLIT_VIEW, vfov=cfg.vfov, width=800, height=450,
+                          device=device)
+    return scene, cam, cfg
+
+
+def _keep(c, shape):
+    """A copy of a ray component: a component that is one value for every
+    ray stays one value (0-dim), as the shadow query's direction is."""
+    if c.dim() == 0 or all(s == 0 for s in c.stride()):
+        return c.reshape(-1)[:1].reshape(()).clone()
+    return c.expand(shape).clone()
+
+
+def record_waves(scene, cam, cfg, spp_batch: int = 4) -> list:
+    """The traversal calls of a split frame (`render_frame_wavefront`,
+    fused_sun off for the closest and any-hit queries, on for the sun
+    query), kept for the waves of WAVES: a list of dicts (kind, wave,
+    rows, ro, rd, active) with the tensors on the card."""
+    import torch
+
+    from dsrt_tpu_torch.exec_opts import OPTS
+    from dsrt_tpu_torch.ops import traverse as tv
+    from dsrt_tpu_torch.render import render_frame_wavefront
+    calls = {k: [] for k in QUERY_KINDS}
+    kept = {}
+    full_rows = [0]
+    orig = tv.traverse, tv.traverse_with_sun
+
+    def note(kind, ro, rd, active):
+        rows = active.shape[0]
+        full_rows[0] = max(full_rows[0], rows)
+        i = len(calls[kind])
+        calls[kind].append(rows)
+        drain = rows < full_rows[0]
+        wave = ("drain" if drain else
+                "bounce 1" if i == 1 else "late full width")
+        if wave == "drain" and (kind, "drain") in kept:
+            return
+        if wave == "late full width" or (kind, wave) not in kept:
+            shape = active.shape
+            kept[(kind, wave)] = dict(
+                kind=kind, wave=wave, rows=rows, call=i,
+                ro=[_keep(c, shape) for c in ro],
+                rd=[_keep(c, shape) for c in rd], active=active.clone())
+
+    def traverse(scene_, ro, rd, active, t_min, t_max, any_hit=False):
+        note("any" if any_hit else "closest", ro, rd, active)
+        return orig[0](scene_, ro, rd, active, t_min, t_max, any_hit=any_hit)
+
+    def traverse_with_sun(scene_, ro, rd, active, t_min, t_max, sun_ldir,
+                          shadow_bias, *rest):
+        note("sun", ro, rd, active)
+        return orig[1](scene_, ro, rd, active, t_min, t_max, sun_ldir,
+                       shadow_bias, *rest)
+
+    tv.traverse, tv.traverse_with_sun = traverse, traverse_with_sun
+    try:
+        for fused in (False, True):
+            OPTS.fused_sun = fused
+            render_frame_wavefront(scene, cam, cfg, spp_batch=spp_batch)
+    finally:
+        OPTS.fused_sun = False
+        tv.traverse, tv.traverse_with_sun = orig
+    torch.cuda.synchronize()
+    return [kept[(k, w)] for k in QUERY_KINDS for w in WAVES]
+
+
+def wave_work(scene, rec: dict, sample: int = 2048) -> dict:
+    """Active share, the binary walk's visits and tests on every active
+    ray (the plain walk on the card, for the bound), and binary and wide
+    visits per query on a CPU sample of `sample` active rays."""
+    import torch
+
+    from dsrt_tpu_torch.ops import traverse as tv
+    from dsrt_tpu_torch.ops.linalg import V3
+    from dsrt_tpu_torch.ops.shade import sun_direction
+    from dsrt_tpu_torch.ops.trace import (lane_traverse, walk_counter,
+                                          wide_walk_plain)
+    act = rec["active"]
+    shape = act.shape
+    ro = V3(*(c.expand(shape) for c in rec["ro"]))
+    rd = V3(*(c.expand(shape) for c in rec["rd"]))
+    sdir = sun_direction(scene)
+
+    def run(sc, o, d, a, walk):
+        # the sun query as the kernel composes it (traverse_with_sun_plain)
+        got = walk(sc, o, d, 1e-3, 1e9, a, any_hit=rec["kind"] == "any")
+        if rec["kind"] == "sun":
+            so = tv.sun_origin(sc, o, d, got[0], got[3], 1e-3)
+            sun = V3(*(c.to(got[0].device).expand(got[0].shape)
+                       for c in sdir))
+            walk(sc, so, sun, 1e-3, 1e9, got[3] >= 0, any_hit=True)
+
+    with walk_counter() as full:
+        run(scene, ro, rd, act, lane_traverse)
+    idx = torch.nonzero(act.reshape(-1)).reshape(-1)
+    pick = idx[torch.randperm(idx.numel(), generator=torch.Generator()
+                              .manual_seed(0))[:sample].to(idx.device)]
+    cpu = scene.to("cpu")
+    so = V3(*(c.reshape(-1)[pick].cpu() for c in ro))
+    sd = V3(*(c.reshape(-1)[pick].cpu() for c in rd))
+    sa = torch.ones(pick.numel(), dtype=torch.bool)
+    with walk_counter() as binary:
+        run(cpu, so, sd, sa, lane_traverse)
+    with walk_counter() as wide:
+        run(cpu, so, sd, sa, wide_walk_plain)
+    n_act = int(act.sum())
+    rays_in = tv.ray_bytes(V3(*rec["ro"]), V3(*rec["rd"]), n_act)
+    bound, by = tv.bound_ms(scene, act.numel(), rays_in, int(full["visits"]),
+                            int(full["tests"]), with_sun=rec["kind"] == "sun")
+    return {"lanes": act.numel(), "active": n_act,
+            "active_share": n_act / act.numel(),
+            "visits": int(full["visits"]), "tests": int(full["tests"]),
+            "bound_ms": bound, "bound_by": by, "sample": pick.numel(),
+            "binary_per_query": int(binary["visits"]) / max(pick.numel(), 1),
+            "wide_per_query": int(wide["wide_visits"]) / max(pick.numel(),
+                                                              1)}
+
+
+def random_records(device, n: int = 1 << 20) -> list:
+    """chip_smoke.py phase 9's 2^20 random rays (90% active) as records
+    of each query kind."""
+    import torch
+    ro, rd = random_rays(n, 11, device)
+    act = torch.from_numpy(np.random.default_rng(12).random(n) > 0.1).to(
+        device)
+    return [dict(kind=k, wave="2^20 random", rows=1, call=0, ro=list(ro),
+                 rd=list(rd), active=act) for k in QUERY_KINDS]
+
+
+def traverse_call(scene, rec: dict):
+    """A thunk launching the record's query through the wrapper."""
+    from dsrt_tpu_torch.ops import traverse as tv
+    from dsrt_tpu_torch.ops.linalg import V3
+    from dsrt_tpu_torch.ops.shade import sun_direction
+    act = rec["active"]
+    ro, rd = V3(*rec["ro"]), V3(*(c.expand(act.shape) if c.dim() == 0
+                                  else c for c in rec["rd"]))
+    if rec["kind"] == "sun":
+        sdir = sun_direction(scene)
+        # the sun vector made once, as the wave loops make it once a frame
+        sun = tv.sun_vector(sdir, 1e-3)
+        return lambda: tv.traverse_with_sun(scene, ro, rd, act, 1e-3, 1e9,
+                                            sdir, 1e-3, sun)
+    return lambda: tv.traverse(scene, ro, rd, act, 1e-3, 1e9,
+                               any_hit=rec["kind"] == "any")
+
+
+def _profiled(fn, reps: int, tries: int = 4):
+    """torch.profiler's device records over `reps` calls of `fn` (after
+    one call outside it), taken again until the session has recorded a
+    traversal kernel: the profiler can record none, most often in a
+    session that traces the host too, late in a process that ran other
+    sessions.  Raises when `tries` sessions recorded none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        if any("traverse" in e.name and getattr(e, "device_type", None)
+               == torch.autograd.DeviceType.CUDA for e in prof.events()):
+            return prof
+    raise RuntimeError(f"torch.profiler recorded no traversal kernel in "
+                       f"{tries} sessions of {reps} calls")
+
+
+def launch_ops(fn, reps: int = 5) -> dict:
+    """What one call of `fn` (a traversal wrapper call) issues, from
+    torch.profiler over `reps` calls: the work items on the device
+    (kernels, memsets, copies; a session of device records, `_profiled`)
+    and the top-level aten ops on the host (a session of host records),
+    each the most that any one name was recorded, per call (the profiler
+    can miss a record)."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    dev = collections.Counter(
+        e.name for e in _profiled(fn, reps).events()
+        if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    host = collections.Counter(e.name for e in prof.events()
+                               if e.name.startswith("aten::")
+                               and e.cpu_parent is None)
+    per_call = {k: -(-n // reps) for k, n in dev.items()}
+    return {"device_ops": sum(per_call.values()),
+            "device_names": sorted(per_call),
+            "aten_ops": sum(-(-n // reps) for n in host.values()),
+            "aten_names": sorted(host)}
+
+
+def kernel_device_ms(fn, reps: int) -> float:
+    """Mean device time of one launch of the traversal kernels (every
+    kernel whose name holds "traverse"), from torch.profiler over `reps`
+    calls: the recorded time over the recorded launches, so a record the
+    profiler missed does not count as a launch of no time."""
+    us = n = 0
+    for e in _profiled(fn, reps).key_averages():
+        if "traverse" in e.key and getattr(e, "self_device_time_total", 0):
+            us += e.self_device_time_total
+            n += e.count
+    if n == 0:
+        raise RuntimeError("torch.profiler recorded no traversal kernel time")
+    return us / 1e3 / n
+
+
+def traverse_resources() -> dict:
+    """Resident blocks of 256 per SM of each traversal kernel instance
+    (the library's occupancy call), with its registers, stack frame and
+    spill bytes from the build's -Xptxas -v log (absent when the library
+    was built by an earlier process)."""
+    import re
+
+    from dsrt_tpu_torch.ops import build
+    lib = build.load()
+    out, name = {}, None
+    for ln in build.build_info.get("log", "").splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([A-Za-z0-9_]+)'?", ln)
+        if m:
+            name = m.group(1) if "traverse" in m.group(1) else None
+            if name:
+                out.setdefault(name, {})
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
+                      ln)
+        if m:
+            out[name].update(stack=int(m.group(1)), spill=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    named = {}
+    # instance = kind + 3 * wide, as the library numbers them
+    for instance in range(2 * len(QUERY_KINDS)):
+        kind, wide = instance % 3, instance // 3
+        mangled = f"traverse_kernelILi{kind}ELb{wide}E"
+        res = next((r for k, r in out.items() if mangled in k), {})
+        named[f"{QUERY_KINDS[kind]}/{'wide' if wide else 'binary'}"] = dict(
+            res, blocks_per_sm=lib.dsrt_traverse_occupancy(instance))
+    return named
+
+
+def traverse_probe(scene, records: list, reps: int) -> list:
+    """For each record: its work (`wave_work`, computed once and kept in
+    the record), the wrapper call's CUDA-event mean and the kernel's
+    profiler device time over `reps` calls."""
+    rows = []
+    for rec in records:
+        if "work" not in rec:
+            rec["work"] = wave_work(scene, rec)
+        fn = traverse_call(scene, rec)
+        rows.append({"query": rec["kind"], "wave": rec["wave"],
+                     "rows": rec["rows"], "call": rec["call"],
+                     "ms": event_ms(fn, reps),
+                     "kernel_ms": kernel_device_ms(fn, reps), **rec["work"]})
+    return rows
+
+
 def card() -> str:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -618,6 +939,110 @@ def sphere_registers() -> int | None:
     return None
 
 
+def load_records(path: Path, scene, cam, cfg, device) -> list:
+    """The recorded waves and the 2^20 random rays, each with its work:
+    from `path` when an earlier run saved them, else recorded (and
+    saved)."""
+    import torch
+    if path.exists():
+        records = torch.load(path, weights_only=False)
+        for rec in records:
+            for k in ("ro", "rd"):
+                rec[k] = [c.to(device) for c in rec[k]]
+            rec["active"] = rec["active"].to(device)
+        return records
+    records = record_waves(scene, cam, cfg) + random_records(device)
+    for rec in records:
+        rec["work"] = wave_work(scene, rec)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save([dict(r, ro=[c.cpu() for c in r["ro"]],
+                     rd=[c.cpu() for c in r["rd"]],
+                     active=r["active"].cpu()) for r in records], path)
+    return records
+
+
+def split_frame_walls(scene, cam, cfg, device, reps: int = 5) -> list:
+    """The split frames of chip_smoke.py phase 11 (the stand-in, the mixed
+    stand-in, the stand-in with fused_sun; 800x450 spp32 depth50
+    spp_batch 4): least wall of `reps` frames, and one profiled frame's
+    traversal kernel device time and device busy time."""
+    import time
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from dsrt_tpu_torch.exec_opts import OPTS
+    from dsrt_tpu_torch.models.mesh_gen import iss_mixed_scene
+    from dsrt_tpu_torch.render import render_frame_wavefront
+    mixed = iss_mixed_scene(detail=12, device=device)
+    cases = (("stand-in", scene, False), ("mixed", mixed, False),
+             ("stand-in fused_sun", scene, True))
+
+    def frame(sc, fused):
+        OPTS.fused_sun = fused
+        try:
+            render_frame_wavefront(sc, cam, cfg, spp_batch=4)
+            torch.cuda.synchronize()
+        finally:
+            OPTS.fused_sun = False
+
+    # every wall before any profiled frame
+    rows = []
+    for name, sc, fused in cases:
+        frame(sc, fused)
+        walls = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            frame(sc, fused)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        rows.append({"frame": name, "frame_ms": min(walls),
+                     "frame_walls_ms": walls})
+    for row, (_, sc, fused) in zip(rows, cases):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            frame(sc, fused)
+        trav = busy = 0.0
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", 0)
+            if us <= 0 or getattr(e, "device_type", None) != \
+                    torch.autograd.DeviceType.CUDA:
+                continue
+            busy += us / 1e3
+            if "traverse" in e.key:
+                trav += us / 1e3
+        row.update(traverse_device_ms=trav, device_busy_ms=busy)
+    return rows
+
+
+def traverse_main(dev, tree: str, card_name: str, args) -> int:
+    """--traverse: the traversal kernels at the split frame's recorded
+    waves and at 2^20 random rays, on both walks (the 8-ary walk, then
+    the binary one that deeper trees take); with --frames the split
+    frames' walls too."""
+    import dataclasses
+
+    from dsrt_tpu_torch.ops import traverse as tv
+    scene, cam, cfg = split_frame(dev)
+    records = load_records(Path(args.waves), scene, cam, cfg, dev)
+    head = {"tree": tree, "card": card_name}
+    if args.frames:
+        # first, before any profiler session of this process
+        for row in split_frame_walls(scene, cam, cfg, dev):
+            print(json.dumps(dict(head, **row)), flush=True)
+    print(json.dumps(dict(head, resources=traverse_resources())), flush=True)
+    late = [r for r in records if r["wave"] == "late full width"]
+    print(json.dumps(dict(head, launch_ops={
+        r["kind"]: launch_ops(traverse_call(scene, r)) for r in late})),
+        flush=True)
+    walks = [("wide", scene), ("binary", dataclasses.replace(
+        scene, wide_stack=tv.WIDE_STACK + 1))]
+    for walk, sc in walks:
+        for row in traverse_probe(sc, records, args.reps):
+            print(json.dumps(dict(head, walk=walk, reps=args.reps, **row)),
+                  flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=str(Path(__file__).resolve()
@@ -626,6 +1051,11 @@ def main() -> int:
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--cells", action="store_true")
     mode.add_argument("--sphere", action="store_true")
+    mode.add_argument("--traverse", action="store_true")
+    ap.add_argument("--waves", default=str(Path(__file__).resolve()
+                                           .parents[2] / "build"
+                                           / "traverse_waves.pt"))
+    ap.add_argument("--frames", action="store_true")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.tree).resolve()))
     import torch
@@ -654,6 +1084,8 @@ def main() -> int:
         for row, t in zip(rows, stamped):
             print(json.dumps(dict(row, **t)), flush=True)
         return 0
+    if args.traverse:
+        return traverse_main(dev, tree, name, args)
     scene, cam, cfg = flagship(dev)
     print(json.dumps({"tree": tree, "card": name, "cell": "flagship",
                       "kernel_ms": kernel_ms(scene, cam, cfg, args.reps),

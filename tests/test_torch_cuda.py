@@ -148,19 +148,25 @@ def test_sphere_frames_go_through_the_sphere_kernel(cuda):
         sphere_kernel.sphere_render(bad, cam, cfg)
 
 
+@pytest.mark.parametrize("walk", ["wide", "binary"])
 @pytest.mark.parametrize("kind", ["closest", "any", "sun"])
-def test_traverse_kernels_match_plain_versions(cuda, scene_cpu, kind):
+def test_traverse_kernels_match_plain_versions(cuda, scene_cpu, kind, walk):
     """dsrt_traverse / dsrt_traverse_sun against their plain versions on
     the card: exact (t, u, v, tri) on closest hits, equal hit masks on
-    any-hit queries, equal `blocked` on hit lanes."""
+    any-hit queries, equal `blocked` on hit lanes; on the 8-ary walk and
+    on the binary one (a scene deeper than the wide walk's stack)."""
     from dsrt_tpu_torch.ops import traverse as tv
     from dsrt_tpu_torch.ops.shade import sun_direction
     scene = scene_cpu.to(cuda)
+    if walk == "binary":
+        scene = dataclasses.replace(scene, wide_stack=tv.WIDE_STACK + 1)
+    assert tv.walk_of(scene) == walk
     ro, rd = _rays(1 << 16, cuda)
     act = torch.from_numpy(np.random.default_rng(4).random(1 << 16) > 0.1
                            ).to(cuda)
     name = "dsrt_traverse_sun" if kind == "sun" else "dsrt_traverse"
     before = tv.LAUNCHES[name]
+    inst = tv.INSTANCE_LAUNCHES[(kind, walk)]
     if kind == "sun":
         sdir = sun_direction(scene)
         got = tv.traverse_with_sun(scene, ro, rd, act, 1e-3, 1e9, sdir, 1e-3)
@@ -173,6 +179,7 @@ def test_traverse_kernels_match_plain_versions(cuda, scene_cpu, kind):
                                  any_hit=kind == "any")
     torch.cuda.synchronize()
     assert tv.LAUNCHES[name] == before + 1
+    assert tv.INSTANCE_LAUNCHES[(kind, walk)] == inst + 1
     hits = want[3] >= 0
     assert hits.sum() > 1000 and not hits[~act].any()
     assert torch.equal(got[3] >= 0, hits)
@@ -180,6 +187,7 @@ def test_traverse_kernels_match_plain_versions(cuda, scene_cpu, kind):
         for g, w in zip(got[:4], want[:4]):
             assert torch.equal(g, w)
     if kind == "sun":
+        assert got[4].dtype == torch.bool
         assert torch.equal(got[4][hits], want[4][hits])
         assert 0 < want[4][hits].sum() < hits.sum()
 

@@ -9,6 +9,9 @@ inactive.  Tolerance: exact in (t, u, v, tri) on closest hits, equal hit
 masks on any-hit queries, `blocked` equal on hit lanes.  The TPU kernel
 walks one octant per block and the port each ray's own, which changes
 only the visit order; the exact agreement shows no tie fell differently.
+The CUDA kernels' wide instance is held here through its spec: the sun
+query composed of `wide_walk_plain` walks, as the kernel composes it,
+against the plain version and the interpret-mode kernel.
 
 The interpret-mode kernels run in a subprocess whose XLA may not use FMA
 instructions (--xla_cpu_max_isa=AVX): with them XLA-CPU contracts the
@@ -18,6 +21,7 @@ differ in the last bit.  The per-lane walk runs op by op (jit disabled)
 for the same reason.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -35,7 +39,7 @@ from dsrt_tpu.ops.linalg import V3 as JV3
 from dsrt_tpu_torch.models.presets import random_tri_soup_scene
 from dsrt_tpu_torch.ops import traverse as tv
 from dsrt_tpu_torch.ops.linalg import V3
-from dsrt_tpu_torch.ops.trace import walk_counter
+from dsrt_tpu_torch.ops.trace import walk_counter, wide_walk_plain
 
 ROOT = Path(__file__).resolve().parent.parent
 NTRI = 2100
@@ -200,10 +204,102 @@ def test_walk_counter_and_bound(port_scene):
         tv.traverse_plain(port_scene, ro, rd, act, T_MIN, T_MAX)
     visits, tests = int(c["visits"]), int(c["tests"])
     assert visits >= int(act.sum()) and tests > 0
-    ms, by = tv.bound_ms(port_scene, N, visits, tests)
+    n_act = int(act.sum())
+    rays_in = tv.ray_bytes(ro, rd, n_act)
+    assert rays_in == 24 * n_act
+    ms, by = tv.bound_ms(port_scene, N, rays_in, visits, tests)
     flops = visits * tv.SLAB_FLOPS + tests * tv.MT_FLOPS
     tables = sum(getattr(port_scene, k).numel() * 4
                  for k in ("bvh_pack", "thr_pack", "tri_pack"))
-    assert ms == pytest.approx(max(flops / 67e12, (N * tv.RAY_BYTES + tables)
+    assert ms == pytest.approx(max(flops / 67e12, (N * tv.LANE_BYTES
+                                                   + 24 * n_act + tables)
                                    / 3.35e12) * 1e3)
     assert by in ("bytes", "operations")
+    sun_ms, _ = tv.bound_ms(port_scene, N, rays_in, visits, tests,
+                            with_sun=True)
+    assert sun_ms >= ms
+
+
+def test_ray_bytes_counts_active_rays_and_one_value_components():
+    """An inactive lane reads no ray; a component that is one value for
+    every ray (the shadow query's sun direction, 0-dim or expanded) is
+    read once."""
+    ro, rd, _ = _torch_rays()
+    assert tv.ray_bytes(ro, rd, 0) == 0
+    assert tv.ray_bytes(ro, rd, 7) == 24 * 7
+    sd = V3(torch.tensor(0.5), torch.tensor(0.5).expand(N),
+            torch.tensor(0.5).reshape(1).expand(N))
+    assert tv.ray_bytes(ro, sd, 7) == 12 * 7 + 12
+
+
+def test_walk_rule_takes_the_wide_walk_up_to_its_stack(port_scene):
+    """The kernels walk the 8-ary table while the scene's worst stack
+    height fits the wide walk's WIDE_STACK (256) entries, and the binary
+    walk (any depth) above it."""
+    assert tv.WIDE_STACK == 256
+    assert port_scene.wide_stack <= tv.WIDE_STACK
+    assert tv.walk_of(port_scene) == "wide"
+    for stack, walk in ((tv.WIDE_STACK, "wide"), (tv.WIDE_STACK + 1, "binary"),
+                        (257, "binary")):
+        assert tv.walk_of(dataclasses.replace(port_scene,
+                                              wide_stack=stack)) == walk
+    assert set(tv.INSTANCE_LAUNCHES) == {(q, w) for q in tv.QUERIES
+                                         for w in tv.WALKS}
+
+
+def _wide_sun(scene, ro, rd, act):
+    """The sun kernel's composition on its wide instance's spec: closest
+    hit by wide_walk_plain, sun_origin, then the any-hit walk."""
+    return tv.traverse_with_sun_plain(scene, ro, rd, act, T_MIN, T_MAX,
+                                      _sun(), BIAS, walk=wide_walk_plain)
+
+
+def test_wide_sun_composition_equals_plain_version(port_scene):
+    ro, rd, act = _torch_rays()
+    got = _wide_sun(port_scene, ro, rd, act)
+    want = tv.traverse_with_sun_plain(port_scene, ro, rd, act, T_MIN, T_MAX,
+                                      _sun(), BIAS)
+    hits = want[3] >= 0
+    assert 200 < int(hits.sum()) and 0 < int(want[4][hits].sum())
+    for g, w in zip(got[:4], want[:4]):
+        assert torch.equal(g, w)
+    assert torch.equal(got[4][hits], want[4][hits])
+
+
+def test_wide_sun_composition_matches_interpret_mode_kernel(port_scene,
+                                                            jax_kernels):
+    ro, rd, act = _torch_rays()
+    got = _wide_sun(port_scene, ro, rd, act)
+    for g, k in zip(got[:4], "tuvi"):
+        np.testing.assert_array_equal(g.numpy(), jax_kernels["sun" + k])
+    hits = jax_kernels["suni"] >= 0
+    np.testing.assert_array_equal(got[4].numpy()[hits],
+                                  jax_kernels["sunb"][hits])
+
+
+def test_ray_layouts_the_kernels_read_without_copies():
+    """Full contiguous components are passed as they are, a component
+    that is one value for every ray (0-dim or expanded, as a shadow
+    query's direction) by its one address with its bit set, any other
+    layout copied."""
+    act = torch.ones((4, 8), dtype=torch.bool)
+    full = torch.arange(32, dtype=torch.float32).reshape(4, 8)
+    one = torch.tensor(2.0)
+    strided = torch.zeros((8, 4)).t()
+    ro = V3(full, one, one.expand(4, 8))
+    rd = V3(strided, full, full)
+    ptrs, keep, bcast = tv._rays(ro, rd, act)
+    assert bcast == 0b000110
+    assert ptrs[0] == full.data_ptr() and ptrs[1] == one.data_ptr()
+    assert ptrs[2] == one.data_ptr() and ptrs[4] == full.data_ptr()
+    assert keep[3].is_contiguous() and ptrs[3] != strided.data_ptr()
+    assert torch.equal(keep[3], strided)
+    with pytest.raises(ValueError):
+        tv._rays(V3(full.double(), one, one), rd, act)
+
+
+def test_sun_vector_is_ldir_and_bias():
+    v = tv.sun_vector(_sun(), BIAS)
+    assert v.dtype == torch.float32 and v.shape == (4,)
+    assert v.tolist() == [float(np.float32(c)) for c in LDIR] + [
+        float(np.float32(BIAS))]

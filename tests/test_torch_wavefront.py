@@ -281,7 +281,8 @@ def test_bounce_step_takes_a_known_walk():
         bounce_step(ts, RenderConfig(**CFG), v, v, v, v,
                     torch.zeros(4, dtype=torch.int64),
                     torch.ones(4, dtype=torch.bool),
-                    torch.zeros(4, dtype=torch.bool), v, walk="packet")
+                    torch.zeros(4, dtype=torch.bool), v, torch.zeros(4),
+                    walk="packet")
 
 
 def test_driver_modes(tmp_path, capsys):

@@ -379,3 +379,30 @@ def test_wrapper_refuses_a_tree_deeper_than_the_stack():
                                 wide_stack=path_kernel.WIDE_STACK + 1)
     with pytest.raises(ValueError, match="stack"):
         path_kernel._wide_tables(scene)
+
+
+def test_sun_composition_on_the_deep_tree_equals_plain_version():
+    """The sun kernel's composition (closest hit, `sun_origin`, any-hit
+    toward the sun) on the wide walk equals `traverse_with_sun_plain` on
+    the nested triangles, whose walk needs more than 64 stack entries:
+    (t, u, v, tri) exact, `blocked` equal on hit lanes."""
+    from dsrt_tpu_torch.ops import traverse as tv
+    scene = _scene("nested")
+    o, d = _rays("nested")
+    o, d = o[:, -4096:], d[:, -4096:]
+    o[0, ::2] += 0.4
+    act = np.ones(o.shape[1], bool)
+    act[::6] = False
+    ld = np.array([0.35, 0.2, 1.0], np.float32)
+    ld /= np.linalg.norm(ld)
+    sun = V3(*(torch.tensor(float(c)) for c in ld))
+    args = (scene, _t(o), _t(d), torch.from_numpy(act), 1e-3, 1e9, sun,
+            1e-3)
+    got = tv.traverse_with_sun_plain(*args, walk=wide_walk_plain)
+    want = tv.traverse_with_sun_plain(*args)
+    hits = want[3] >= 0
+    assert 1000 < int(hits.sum()) and 0 < int(want[4][hits].sum()) < int(
+        hits.sum())
+    for g, w in zip(got[:4], want[:4]):
+        assert torch.equal(g, w)
+    assert torch.equal(got[4][hits], want[4][hits])
