@@ -40,8 +40,17 @@ phases, the exact-math phase tries every input the kernels give their
 short exact cos and sin (csrc/exact_math.cuh) against
 libdevice and the plain version's float64 calls; after them, the sphere
 design phase prints the sphere kernel's registers, resident blocks, tail
-share, longest pixel and per-phase cycle shares.  Each phase prints one
-line; any failure raises, so the exit code is nonzero.  The last two lines are the kernels' JSON summary and
+share, longest pixel and per-phase cycle shares.  Then the rest of the
+frame entry points (phases 15-18): both megakernels' pixel-list launch
+against their frame launch at the same pixels, spp and salt (and
+against the plain list version at 64x36); adaptive frames (the flagship
+at cap 32, rtiow at cap 64) round by round, with each round's kernel
+time and bound and its sums against the plain list version, and with every pixel run to the cap against the chunked
+fixed frame; the debug render (both skies) against the plain walk and
+the radiance against the path kernel's sums; the driver over four poses
+of the flagship pipelined and serial (PNG bytes identical, wall per
+frame of each), with --adaptive and with --debug_shade.  Each phase
+prints one line; any failure raises, so the exit code is nonzero.  The last two lines are the kernels' JSON summary and
 {"ok": true, "device": {...}}.  Needs one CUDA device; imports no JAX and
 nothing of the JAX package.
 """
@@ -83,6 +92,16 @@ QUAD_FLOPS = 58
 MIXED_FRAMES = (("mixed stand-in", 800, 450, 32),
                 ("mixed_scene", 400, 225, 32),
                 ("volumetric mesh", 800, 450, 32))
+# the list checks and adaptive frames (width, height, spp cap, samples a
+# list launch and a round): the flagship on the path kernel, rtiow on the
+# sphere kernel
+LIST_FRAMES = {"dsrt_path_render": (800, 450, 32, 4),
+               "dsrt_sphere_render": (400, 225, 64, 8)}
+# the debug frames and the radiance check (width, height, spp), and the
+# driver's frames of the pipeline phase
+DEBUG_FRAME = (320, 180, 4)
+RADIANCE_FRAME = (64, 36, 2)
+PIPELINE_FRAME = (800, 450, 32)
 
 
 def phase(name: str, msg: str) -> None:
@@ -163,7 +182,8 @@ def register_counts(log: str) -> dict:
                     f"traverse_kernel<{walk.group(1)},{walk.group(2)}>"
                     if walk else
                     "sphere_render_kernel" if "sphere_render_kernel" in
-                    mangled else mangled)
+                    mangled else "sphere_list_kernel" if
+                    "sphere_list_kernel" in mangled else mangled)
             continue
         m = re.search(r"Used (\d+) registers", ln)
         if m and name is not None:
@@ -1029,6 +1049,453 @@ def mixed_phases(dev, regs: dict) -> dict:
     return frames
 
 
+def list_cases(dev, flagship):
+    """(kernel name, scene, camera, config, samples a launch, launch
+    wrapper, plain version, 64x36 camera) of the list checks and adaptive
+    frames (LIST_FRAMES): the flagship on the path kernel, rtiow on the
+    sphere kernel."""
+    from dsrt_tpu_torch.config import RenderConfig
+    from dsrt_tpu_torch.models import presets
+    from dsrt_tpu_torch.ops import path_kernel, sphere_kernel
+    from dsrt_tpu_torch.ops.camera import make_camera, point_camera_at
+    rt = presets.rtiow_smoke_scene(device=dev)
+    out = []
+    for name, scene, wrapper, plain in (
+            ("dsrt_path_render", flagship, path_kernel.path_render,
+             path_kernel.path_render_plain),
+            ("dsrt_sphere_render", rt, sphere_kernel.sphere_render,
+             sphere_kernel.sphere_render_plain)):
+        w, h, cap, chunk = LIST_FRAMES[name]
+        if name == "dsrt_path_render":
+            cams = [point_camera_at(frm, vfov=40.0, width=cw, height=ch,
+                                    device=dev)
+                    for frm, cw, ch in ((BENCH_CAM, w, h),
+                                        (SUNLIT_CAM, 64, 36))]
+        else:
+            cams = [make_camera((0.0, 0.6, 2.0), (0.0, 0.0, -1.0), vfov=50,
+                                width=cw, height=ch, device=dev)
+                    for cw, ch in ((w, h), (64, 36))]
+        out.append((name, scene, cams[0],
+                    RenderConfig(width=w, height=h, spp=cap, max_depth=50),
+                    chunk, wrapper, plain, cams[1]))
+    return out
+
+
+def list_check_phase(dev, flagship) -> dict:
+    """Phase 15: each megakernel's pixel-list launch over a scattered
+    ~30% of the frame, its complement and 300 pixels, against the
+    full-frame launch at the same spp and salt (rows identical, rays of a
+    set and its complement adding up to the frame's), and against the
+    plain list version on the card on a 64x36 frame."""
+    from dsrt_tpu_torch.render import SALT_MIX
+    out = {}
+    rng = np.random.default_rng(15)
+    salt = (2 * SALT_MIX) & 0xFFFFFFFF
+    for name, scene, cam, cfg, spp, launch, plain, cam_s in list_cases(
+            dev, flagship):
+        w, h = cfg.width, cfg.height
+        npix = w * h
+        full, n_full = launch(scene, cam, cfg, spp, salt)
+        full = full.reshape(-1, 3)
+        keep = rng.random(npix) < 0.3
+        sets = {"30%": np.nonzero(keep)[0], "rest": np.nonzero(~keep)[0],
+                "300": rng.permutation(npix)[:300]}
+        rays = {}
+        for k, idx in sets.items():
+            pix = torch.as_tensor(idx, device=dev)
+            acc, n = launch(scene, cam, cfg, spp, salt, pixels=pix)
+            torch.cuda.synchronize()
+            same = float((acc == full[pix]).all(-1).float().mean())
+            require(torch.equal(acc, full[pix]),
+                    f"{name}: the list launch over {k} differs from the "
+                    f"frame launch ({same:.4%} of rows identical)")
+            rays[k] = int(n)
+        require(rays["30%"] + rays["rest"] == int(n_full),
+                f"{name}: list rays do not add up to the frame's")
+        pix30 = torch.as_tensor(sets["30%"], device=dev)
+        ms_list = event_ms(lambda: launch(scene, cam, cfg, spp, salt,
+                                          pixels=pix30), 5)
+        ms_full = event_ms(lambda: launch(scene, cam, cfg, spp, salt), 5)
+        # against the plain list version on the card, 64x36
+        cfg_s = dataclasses.replace(cfg, width=64, height=36)
+        small = torch.as_tensor(np.nonzero(rng.random(64 * 36) < 0.3)[0],
+                                device=dev)
+        acc_k, n_k = launch(scene, cam_s, cfg_s, spp, salt, pixels=small)
+        acc_p, n_p = plain(scene, cam_s, cfg_s, spp, salt, pixels=small)
+        torch.cuda.synchronize()
+        phase("15 list check",
+              f"{name} {w}x{h} spp{spp} salt {salt:#x}: list launches over "
+              f"{len(sets['30%'])} (30%), {len(sets['rest'])} (the rest) and "
+              f"300 scattered pixels: rows identical to the frame launch's, "
+              f"rays {rays['30%']} + {rays['rest']} = {int(n_full)} (the "
+              f"frame's); wrapper call (CUDA events) 30% list {ms_list:.3f} "
+              f"ms, frame {ms_full:.3f} ms; 64x36 list of {small.numel()} vs "
+              f"the plain list version on the card: identical "
+              f"{torch.equal(acc_k, acc_p)}, rays {int(n_k)} vs {int(n_p)} "
+              f"(tolerance: identical)")
+        require(torch.equal(acc_k, acc_p) and int(n_k) == int(n_p),
+                f"{name}: list launch and plain list version differ")
+        require(float((acc_p > 0).float().mean()) > 0.05,
+                f"{name}: the 64x36 list check is dark")
+        out[name] = {"shape": f"{w}x{h} spp{spp}",
+                     "pixels_30": len(sets["30%"]), "list_ms_30": ms_list,
+                     "frame_ms": ms_full, "rays": rays,
+                     "frame_rays": int(n_full)}
+    return out
+
+
+def record_rounds(run):
+    """run() with every adaptive round's launch recorded: (result, list
+    of (pixels, spp, salt, (n, 3) sums, ray count))."""
+    from dsrt_tpu_torch import render
+    launch = render.fused_accum
+    rounds = []
+
+    def recorded(scene, cam, cfg, spp, salt, pixels):
+        acc, n = launch(scene, cam, cfg, spp, salt, pixels)
+        rounds.append((pixels, spp, salt, acc, n))
+        return acc, n
+
+    render.fused_accum = recorded
+    try:
+        result = run()
+    finally:
+        render.fused_accum = launch
+    torch.cuda.synchronize()
+    return result, rounds
+
+
+def round_work(name, scene, cam, cfg, pixels, spp, salt, rays,
+               plain_too: bool):
+    """roofline_ms of one list launch's work, and the plain list
+    version's time on the card (CUDA events) and its (n, 3) sums and ray
+    count on the same inputs (None unless `plain_too` or the bound needs
+    the plain run: the path kernel's every round): the plain version's
+    binary visits and triangle tests (path kernel) or the launch's rays
+    times the sphere and medium tests (sphere kernel); the tables in,
+    the list and the (n, 3) sums."""
+    from dsrt_tpu_torch.ops import path_kernel, sphere_kernel
+    from dsrt_tpu_torch.ops.trace import walk_counter
+    from dsrt_tpu_torch.ops.traverse import MT_FLOPS, SLAB_FLOPS, roofline_ms
+    path = name == "dsrt_path_render"
+    plain = (path_kernel.path_render_plain if path
+             else sphere_kernel.sphere_render_plain)
+    plain_ms = plain_out = None
+    if path or plain_too:
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        with walk_counter() as wc:
+            start.record()
+            plain_out = plain(scene, cam, cfg, spp, salt, pixels)
+            stop.record()
+            torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(stop)
+    if path:
+        flops = int(wc["visits"]) * SLAB_FLOPS + int(wc["tests"]) * MT_FLOPS
+        tables, extra = ("wide_pack", "tri_pack", "tri_shade", "mat_pack",
+                         "tex_pool"), 0
+    else:
+        flops = rays * (SPHERE_FLOPS * scene.n_spheres
+                        + MEDIUM_FLOPS * scene.n_media)
+        tables, extra = ("mat_pack", "tex_pool"), 247 * 4
+    bound, by = roofline_ms(flops, table_bytes(scene, tables) + extra
+                            + pixels.numel() * 16)
+    return bound, by, plain_ms, plain_out
+
+
+def adaptive_phase(dev, flagship) -> dict:
+    """Phase 16: adaptive frames (the flagship at cap 32, chunk 4; rtiow
+    at cap 64, chunk 8; tol 0.02) through render_frame_adaptive, each
+    round a list launch: rounds, mean spp, rays, frame wall, and per
+    round the active pixels, the wrapper call's time (CUDA events), the
+    kernel's device time (profiler) and the bound of its work; each
+    round's sums and rays held identical to the plain list version on
+    the round's own list (every round of the path kernel, the first and
+    the last of the sphere kernel).  Then with a negative tol (no pixel converges; tol 0 stops pixels whose
+    two bucket means are equal, as the black background's are) every
+    pixel runs to the cap and each round's sums equal the full-frame
+    launch of the matching chunk of render_accum_fused at a budget of one
+    round, and their sum that function's."""
+    from dsrt_tpu_torch.ops import path_kernel, sphere_kernel
+    from dsrt_tpu_torch.render import (render_accum_fused,
+                                       render_frame_adaptive,
+                                       render_frame_fused)
+    counters = {"dsrt_path_render": path_kernel.LAUNCHES,
+                "dsrt_sphere_render": sphere_kernel.LAUNCHES}
+    out = {}
+    for name, scene, cam, cfg, chunk, launch, _, _ in list_cases(dev,
+                                                                 flagship):
+        w, h, cap = cfg.width, cfg.height, cfg.spp
+        run = lambda tol=0.02: render_frame_adaptive(  # noqa: E731
+            scene, cam, cfg, tol=tol, chunk_spp=chunk, with_count=True)
+        run()   # warm-up
+        torch.cuda.synchronize()
+        counters[name][name] = 0
+        t0 = time.perf_counter()
+        (img, stats), rounds = record_rounds(run)
+        wall = time.perf_counter() - t0
+        launches = counters[name][name]
+        require(launches == stats["rounds"] and launches > 0,
+                f"{name}: adaptive rounds did not launch the kernel")
+        # the flagship view is mostly in shadow (phase 5: lit > 0)
+        require(img.shape == (h, w, 3) and img.max() > 0,
+                f"{name}: adaptive frame")
+        secs, times, _ = wall_time(run, 2)
+        kernel = ("path_render_kernel" if name == "dsrt_path_render"
+                  else "sphere_list_kernel")
+        per_round = []
+        for i, (pixels, spp, salt, acc, n) in enumerate(rounds):
+            fn = lambda: launch(scene, cam, cfg, spp, salt,  # noqa: E731
+                                pixels=pixels)
+            # the plain list version on the round's own list: every round
+            # of the path kernel (its visits feed the bound), the first
+            # and the last of the sphere kernel
+            bound, by, plain_ms, plain_out = round_work(
+                name, scene, cam, cfg, pixels, spp, salt, int(n),
+                i in (0, len(rounds) - 1))
+            if plain_out is not None:
+                require(torch.equal(acc, plain_out[0])
+                        and int(n) == int(plain_out[1]),
+                        f"{name}: adaptive round {i} ({pixels.numel()} "
+                        f"pixels) differs from the plain list version")
+            per_round.append({"active": pixels.numel(), "spp": spp,
+                              "rays": int(n), "ms": event_ms(fn, 3),
+                              "kernel_ms": device_ms(fn, kernel, 3),
+                              "bound_ms": bound, "bound_by": by,
+                              "plain_ms": plain_ms,
+                              "plain_identical": plain_out is not None})
+        phase("16 adaptive",
+              f"{name} {w}x{h} cap {cap} chunk {chunk} tol 0.02: "
+              f"lit {(img > 0).mean():.4f}, {stats['rounds']} rounds, mean "
+              f"spp {stats['mean_spp']:.3f}, "
+              f"{stats['rays']} rays exact, {stats['samples']} samples; "
+              f"rounds held identical (sums and rays) to the plain list "
+              f"version on their lists: "
+              f"{sum(r['plain_identical'] for r in per_round)} of "
+              f"{len(per_round)}; frame wall {wall * 1e3:.1f} ms (first timed), least of 2 "
+              f"{secs * 1e3:.1f} ms; launches {launches}; rounds (active "
+              f"pixels: wrapper ms / kernel device ms / bound ms / plain "
+              f"ms): "
+              + ", ".join(f"{r['active']}: {r['ms']:.3f} / "
+                          f"{r['kernel_ms']:.3f} / {r['bound_ms']:.4f} / "
+                          + ("-" if r["plain_ms"] is None
+                             else f"{r['plain_ms']:.0f}")
+                          for r in per_round))
+        if name == "dsrt_path_render":
+            require(stats["mean_spp"] < cap,
+                    "the flagship's adaptive frame ran every pixel to the "
+                    "cap")
+        # a negative tol: every pixel to the cap, the chunk schedule
+        (img_all, st_all), rounds_all = record_rounds(lambda: run(-1.0))
+        require(st_all["mean_spp"] == cap and
+                st_all["rounds"] == -(-cap // chunk),
+                f"{name}: tol -1 did not run every pixel to the cap")
+        total = None
+        for i, (pixels, spp, salt, acc, n) in enumerate(rounds_all):
+            want, n_want = launch(scene, cam, cfg, spp, salt)
+            require(torch.equal(acc, want.reshape(-1, 3))
+                    and int(n) == int(n_want),
+                    f"{name}: round {i} differs from its chunk launch")
+            total = acc if total is None else total + acc
+        chunked, n_chunked = render_accum_fused(scene, cam, cfg,
+                                                budget=w * h * chunk)
+        require(torch.equal(total, chunked.reshape(-1, 3))
+                and st_all["rays"] == int(n_chunked),
+                f"{name}: the rounds' sum differs from render_accum_fused")
+        fixed = render_frame_fused(scene, cam, cfg, budget=w * h * chunk)
+        same, mean_d = frame_compare(img_all, fixed)
+        phase("16 adaptive",
+              f"{name} tol -1: {st_all['rounds']} rounds, mean spp "
+              f"{st_all['mean_spp']:.1f} (the cap), each round's sums "
+              f"identical to the full-frame launch of its chunk, their sum "
+              f"to render_accum_fused at budget {w * h * chunk}, rays "
+              f"{st_all['rays']}; u8 against render_frame_fused at that "
+              f"budget (float64 host sums against float32 device sums): "
+              f"{same:.4%} identical, mean |d| {mean_d:.4f}")
+        out[name] = {"shape": f"{w}x{h} cap {cap} chunk {chunk} tol 0.02",
+                     "stats": stats, "frame_ms": secs * 1e3,
+                     "launches": launches, "rounds": per_round,
+                     "tol_minus_one": dict(st_all, identical_to_fused=same)}
+    return out
+
+
+def debug_phase(dev, scene) -> dict:
+    """Phase 17: render_frame_debug on the textured stand-in (320x180
+    spp 4, both skies) on the card (its walk the traversal kernel)
+    against the same render with the plain walk on the card; and
+    render_radiance (64x36 spp 2 depth 50) against path_render's sums x
+    f32(1/spp), flipped."""
+    from dsrt_tpu_torch import render
+    from dsrt_tpu_torch.config import RenderConfig
+    from dsrt_tpu_torch.ops import path_kernel, traverse as tv
+    from dsrt_tpu_torch.ops.camera import point_camera_at
+    from dsrt_tpu_torch.ops.trace import scene_hit
+    w, h, spp = DEBUG_FRAME
+    cam = point_camera_at(SUNLIT_CAM, vfov=40.0, width=w, height=h,
+                          device=dev)
+    out = {}
+    for sky in ("solid", "gradient"):
+        cfg = RenderConfig(width=w, height=h, spp=spp, max_depth=50,
+                           sky_type=sky, sky_solid=(0.05, 0.05, 0.1))
+        tv.reset_launches()
+        t0 = time.perf_counter()
+        img = render.render_frame_debug(scene, cam, cfg)
+        secs = time.perf_counter() - t0
+        launches = tv.LAUNCHES["dsrt_traverse"]
+        walk = render.scene_hit_flat
+        render.scene_hit_flat = scene_hit   # the plain walk, on the card
+        try:
+            img_p = render.render_frame_debug(scene, cam, cfg)
+        finally:
+            render.scene_hit_flat = walk
+        same, mean_d = frame_compare(img, img_p)
+        phase("17 debug",
+              f"stand-in {w}x{h} spp{spp} sky {sky}: {secs * 1e3:.1f} ms, "
+              f"dsrt_traverse launches {launches}; u8 against the plain walk "
+              f"on the card {same:.4%} identical, mean |d| {mean_d:.4f} "
+              f"(tolerance: >= 99% identical); lit {(img > 0).mean():.3f}")
+        require(launches == cfg.spp, "the debug frame did not launch "
+                                     "dsrt_traverse once a sample")
+        require(same >= 0.99 and (img > 0).mean() > 0.05,
+                f"debug frame ({sky} sky)")
+        out[sky] = {"ms": secs * 1e3, "launches": launches,
+                    "identical": same}
+    w, h, spp = RADIANCE_FRAME
+    cfg = RenderConfig(width=w, height=h, spp=spp, max_depth=50)
+    cam_s = point_camera_at(SUNLIT_CAM, vfov=40.0, width=w, height=h,
+                            device=dev)
+    tv.reset_launches()
+    rad = render.render_radiance(scene, cam_s, cfg)
+    launches = tv.LAUNCHES["dsrt_traverse"]
+    acc, _ = path_kernel.path_render(scene, cam_s, cfg)
+    want = torch.flip(acc * float(np.float32(1.0 / cfg.spp)),
+                      dims=[0]).cpu().numpy()
+    err = float(np.abs(rad - want).max())
+    same = float((rad == want).all(-1).mean())
+    phase("17 radiance",
+          f"stand-in {w}x{h} spp{spp} depth50: render_radiance (traversal "
+          f"launches {launches}) against path_render's sums x f32(1/spp): "
+          f"{same:.4%} of pixels identical, largest |d| {err:.3g} "
+          f"(tolerance: >= 99% identical)")
+    require(launches > 0 and same >= 0.99, "radiance")
+    out["radiance"] = {"identical": same, "max_abs_err": err,
+                       "launches": launches}
+    return out
+
+
+def pipeline_phase(dev, flagship) -> dict:
+    """Phase 18: render_frame_async against render_frame_fused (u8
+    identical: the tonemap on the card against the host's), then the
+    driver over 4 poses of the flagship (800x450 spp32) pipelined and
+    with --no_pipeline (PNG bytes identical; wall per frame of each),
+    then with --adaptive 0.02 and with --debug_shade (exit 0, lit
+    frames).  The driver's own lines go to a log file."""
+    import contextlib
+    from dsrt_tpu_torch import driver
+    from dsrt_tpu_torch.config import RenderConfig
+    from dsrt_tpu_torch.ops import path_kernel
+    from dsrt_tpu_torch.ops.camera import point_camera_at
+    from dsrt_tpu_torch.render import (finish, render_frame_async,
+                                       render_frame_fused)
+    from dsrt_tpu_torch.utils.image_io import read_png
+    from dsrt_tpu_torch.utils.pose import write_pose_file
+    w, h, spp = PIPELINE_FRAME
+    cfg = RenderConfig(width=w, height=h, spp=spp, max_depth=50)
+    cam = point_camera_at(SUNLIT_CAM, vfov=cfg.vfov, width=w, height=h,
+                          device=dev)
+    img_a, n_a = finish(render_frame_async(flagship, cam, cfg))
+    img_f, n_f = render_frame_fused(flagship, cam, cfg, with_count=True)
+    phase("18 async frame",
+          f"flagship {w}x{h} spp{spp}: render_frame_async (tonemap on the "
+          f"card) against render_frame_fused (tonemap on the host): u8 "
+          f"identical {np.array_equal(img_a, img_f)}, rays {n_a} vs {n_f}, "
+          f"lit {(img_a > 0).mean():.4f} (tolerance: identical)")
+    require(np.array_equal(img_a, img_f) and n_a == n_f
+            and (img_a > 0).mean() > 0.05,
+            "render_frame_async differs from render_frame_fused")
+    poses = os.path.join(OUT, "poses4.txt")
+    model = np.array([1.0e9, 1.5e9, 2.0e9])
+    cams = np.array([BENCH_CAM, SUNLIT_CAM, (-60.0, 20.0, 150.0),
+                     (120.0, -40.0, 140.0)])
+    write_pose_file(poses, model + cams, np.stack([model] * 4), yaw=0.0)
+    common = ["--input_txt", poses, "--wipe", "--width", str(w), "--height",
+              str(h), "--spp", str(spp), "--device", dev.type]
+
+    def drive(tag, *extra):
+        out_dir = os.path.join(OUT, f"frames_{tag}")
+        tsv = os.path.join(OUT, f"timings_{tag}.tsv")
+        args = driver.build_parser().parse_args(
+            common + ["--output_dir", out_dir, "--timings_tsv", tsv,
+                      *extra])
+        with open(os.path.join(OUT, f"driver_{tag}.log"), "w") as log, \
+                contextlib.redirect_stdout(log):
+            t0 = time.perf_counter()
+            rc = driver.run(args, scene=flagship)
+            wall = time.perf_counter() - t0
+        pngs = sorted(f for f in os.listdir(out_dir) if f.endswith(".png"))
+        stages = {}
+        with open(tsv) as fh:
+            for ln in fh.readlines()[1:]:
+                stage, ns, _ = ln.split("\t")
+                stages.setdefault(stage, []).append(int(ns) / 1e6)
+        return rc, wall, {p: open(os.path.join(out_dir, p), "rb").read()
+                          for p in pngs}, stages, out_dir
+
+    drive("warm", "--no_pipeline")
+    runs = {}
+    # serial and pipelined in turns, four pairs
+    for k in range(4):
+        for tag, extra in ((f"serial{k}", ["--no_pipeline"]),
+                           (f"pipelined{k}", []))[::1 if k % 2 else -1]:
+            path_kernel.reset_launches()
+            rc, wall, pngs, stages, _ = drive(tag, *extra)
+            require(rc == 0 and len(pngs) == 4, f"driver {tag}")
+            runs[tag] = dict(
+                wall_ms=wall * 1e3, per_frame_ms=wall * 1e3 / 4,
+                encode_ms=stages.get("encode", []),
+                render_ms=stages.get("render", []),
+                launches=path_kernel.LAUNCHES["dsrt_path_render"], pngs=pngs)
+    same = all(r["pngs"] == runs["serial0"]["pngs"] for r in runs.values())
+    per_frame = {m: [runs[f"{m}{k}"]["per_frame_ms"] for k in range(4)]
+                 for m in ("serial", "pipelined")}
+    hidden = float(np.median(per_frame["serial"])
+                   - np.median(per_frame["pipelined"]))
+    serial = [runs[f"serial{k}"] for k in range(4)]
+    phase("18 pipeline",
+          f"flagship {w}x{h} spp{spp}, 4 poses, 4 runs each in turns: "
+          f"wall per frame serial "
+          f"{', '.join(f'{x:.2f}' for x in per_frame['serial'])} ms, "
+          f"pipelined "
+          f"{', '.join(f'{x:.2f}' for x in per_frame['pipelined'])} ms; "
+          f"serial runs' render stage (frame issued to image on the host) "
+          f"{np.median([x for r in serial for x in r['render_ms']]):.2f} "
+          f"ms and encode "
+          f"{np.median([x for r in serial for x in r['encode_ms']]):.2f} "
+          f"ms a frame (medians); PNG bytes identical across the eight runs "
+          f"{same}; the pipeline hid {hidden:.2f} ms a frame (median serial "
+          f"minus median pipelined)")
+    require(same, "pipelined and serial frames differ")
+    require(all(r["launches"] >= 4 for r in runs.values()),
+            "a driver run did not launch the path kernel")
+    extras = {}
+    for tag, extra in (("adaptive", ["--adaptive", "0.02"]),
+                       ("debug", ["--debug_shade"])):
+        rc, wall, pngs, stages, out_dir = drive(tag, *extra)
+        lit = [float((read_png(os.path.join(out_dir, p)) > 0).mean())
+               for p in pngs]
+        phase("18 pipeline",
+              f"--{tag if tag == 'adaptive' else 'debug_shade'}: rc {rc}, "
+              f"{len(pngs)} frames, wall per frame {wall * 1e3 / 4:.1f} ms, "
+              f"lit shares {', '.join(f'{x:.3f}' for x in lit)}")
+        require(rc == 0 and len(pngs) == 4 and min(lit) > 0
+                and max(lit) > 0.05, f"driver --{tag}")
+        extras[tag] = {"per_frame_ms": wall * 1e3 / 4, "lit": lit}
+    return {"runs": {t: {k: v for k, v in r.items() if k != "pngs"}
+                     for t, r in runs.items()},
+            "per_frame_ms": per_frame, "identical": same,
+            "hidden_ms_per_frame": hidden, **extras}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1284,6 +1751,14 @@ def main() -> int:
     kernels["dsrt_sphere_render"] = sphere_phases(dev, regs)
     kernels.update(split_phases(dev, poses))
     mixed = mixed_phases(dev, regs)
+    # 15-18: the pixel-list launches, adaptive frames, the debug and
+    # radiance renders, the pipelined driver
+    t0 = time.perf_counter()
+    lists = list_check_phase(dev, scene)
+    adaptive = adaptive_phase(dev, scene)
+    debug = debug_phase(dev, scene)
+    pipeline = pipeline_phase(dev, scene)
+    phase("15-18", f"{time.perf_counter() - t0:.0f} s")
     # phase 3's launches are microbenchmark launches too; phases 5 and 14
     # (the megakernels' frames, --mode auto's path) required that no
     # traversal kernel was launched
@@ -1295,8 +1770,27 @@ def main() -> int:
     entry["frames"] = mixed
     entry["launches_by_frame"] = dict(
         {"flagship": entry["launches"]},
-        **{k: v["launches"] for k, v in mixed.items()})
+        **{k: v["launches"] for k, v in mixed.items()},
+        **{"adaptive flagship": adaptive["dsrt_path_render"]["launches"],
+           "pipelined driver, 4 frames":
+               pipeline["runs"]["pipelined0"]["launches"]})
     entry["launches"] = sum(entry["launches_by_frame"].values())
+    entry["pipeline"] = pipeline
+    sph = kernels["dsrt_sphere_render"]
+    sph["launches_by_frame"]["adaptive rtiow"] = \
+        adaptive["dsrt_sphere_render"]["launches"]
+    sph["launches"] = sum(sph["launches_by_frame"].values())
+    for kname in ("dsrt_path_render", "dsrt_sphere_render"):
+        kernels[kname]["list_launch"] = dict(check=lists[kname],
+                                             adaptive=adaptive[kname])
+    trav = kernels["dsrt_traverse"]
+    trav["launches_by_path"] = {
+        "split frames": trav["launches"],
+        "debug frames": sum(debug[k]["launches"]
+                            for k in ("solid", "gradient")),
+        "radiance": debug["radiance"]["launches"]}
+    trav["launches"] = sum(trav["launches_by_path"].values())
+    trav["debug"] = debug
 
     require("jax" not in sys.modules, "jax was imported")
     require(not [m for m in sys.modules
@@ -1305,7 +1799,7 @@ def main() -> int:
     phase("done", f"{time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
 

@@ -41,12 +41,14 @@ unsigned required_instance(const PathArgs& a) {
 extern "C" {
 
 // `counters` is two zeroed 64-bit words: the ray count, then the tile
-// counter (its low 32 bits)
+// counter (its low 32 bits).  `pix` is null for the whole frame, else
+// n_pix > 0 flat pixel indices y * width + x, and accum then has n_pix rows
 int dsrt_path_render(const float* wide, const float* tri, const float* tri_shade,
                      const float* tri_aux, const float* mat, const float* pool, const int* tex_w,
                      const int* tex_h, const int* tex_off, const float* cam, const float* sun,
-                     const float* params, float* accum, unsigned long long* counters, int width,
-                     int height, int cam_w, int cam_h, int spp, int salt, int seed, int max_depth,
+                     const float* params, const int* pix, float* accum,
+                     unsigned long long* counters, int width, int height, int n_pix, int cam_w,
+                     int cam_h, int spp, int salt, int seed, int max_depth,
                      int rr_start, float rr_max_p, float t_min, float t_max, int n_wide,
                      int tri_rows, int n_textures, int pool_n,
                      int n_sph, int n_quads, int n_lights, int n_med, int env, int flags,
@@ -64,11 +66,13 @@ int dsrt_path_render(const float* wide, const float* tri, const float* tri_shade
   a.tex_off = tex_off;
   a.cam = cam;
   a.sun = sun;
+  a.pix = pix;
   a.accum = accum;
   a.nrays = counters;
   a.next_tile = reinterpret_cast<unsigned*>(counters + 1);
   a.width = width;
   a.height = height;
+  a.n_pix = n_pix;
   a.cam_w = cam_w;
   a.cam_h = cam_h;
   a.spp = spp;
@@ -92,7 +96,7 @@ int dsrt_path_render(const float* wide, const float* tri, const float* tri_shade
   a.time0 = time0;
   a.dt = dt;
   if (n_sph < 0 || n_sph > MAX_SPH || n_quads < 0 || n_quads > MAX_QUADS || n_lights < 0 ||
-      n_lights > MAX_LIGHTS || n_med < 0 || n_med > MAX_MED ||
+      n_lights > MAX_LIGHTS || n_med < 0 || n_med > MAX_MED || (pix && n_pix <= 0) ||
       (unsigned)instance != required_instance(a))
     return (int)cudaErrorInvalidValue;
   const unsigned m = (unsigned)instance;

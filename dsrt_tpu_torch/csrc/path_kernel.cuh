@@ -52,6 +52,13 @@
 //     strip.  A pixel still runs all its samples in order in one thread,
 //     so its draws and its float sums are the plain version's; ray counts
 //     are integers and sum exactly in any order.
+// The launch over a pixel list (the TPU kernel's lane set, which adaptive
+// sampling renders): with `pix` set, a warp takes the next 32 entries of
+// the list of flat indices y * width + x in place of the next tile and
+// writes pixel i's sum to row i of an (n, 3) accumulator.  The wrapper
+// orders the list by (8x4 tile, lane in tile), so where the set is dense
+// a warp's 32 entries are one tile as in the frame launch.  It is a
+// run-time pointer, not a template bit, so the instances stay 16.
 // The primitive records every thread loops over sit in __constant__
 // memory (a warp's uniform read is one broadcast), copied there from the
 // scene's packed parameter buffer on the launch's stream; the tables are
@@ -116,10 +123,12 @@ struct PathArgs {
   const int* tex_off;
   const float* cam;  // origin, lower_left, horizontal, vertical, u, v, lens r
   const float* sun;  // Ldir (3), radiance (3), shadow bias
-  float* accum;      // [height][width][3]
+  const int* pix;    // null (the frame) or n_pix flat indices y * width + x
+  float* accum;      // [height][width][3], or [n_pix][3] with pix
   unsigned long long* nrays;
-  unsigned* next_tile;  // zero at launch: the tile counter
+  unsigned* next_tile;  // zero at launch: the tile (or list unit) counter
   int width, height;  // pixel grid
+  int n_pix;
   int cam_w, cam_h;   // camera raster (seeding and raygen)
   int spp;
   uint32_t salt, seed;
@@ -449,23 +458,44 @@ __device__ __forceinline__ f3 render_pixel(const PathArgs& a, int x, int y,
   return acc;
 }
 
-// persistent warps: each takes the next tile until the frame is done
+// persistent warps: each takes the next unit of 32 pixels (an 8x4 tile of
+// the frame, or 32 entries of the pixel list) until none is left
 template <unsigned M>
 __global__ void __launch_bounds__(32 * WARPS) path_render_kernel(const PathArgs a) {
   const int lane = threadIdx.x & 31;
   const int tiles_x = (a.width + TILE_W - 1) / TILE_W;
-  const int n_tiles = tiles_x * ((a.height + TILE_H - 1) / TILE_H);
+  const unsigned n_units =
+      a.pix ? ((unsigned)a.n_pix + 31u) / 32u
+            : (unsigned)(tiles_x * ((a.height + TILE_H - 1) / TILE_H));
+  // each thread's row of accum waits here (volatile: not forwarded into
+  // a register) while it renders, so that the render keeps the frame
+  // launch's registers
+  __shared__ unsigned rows_mem[32 * WARPS];
+  volatile unsigned* rows = rows_mem;
   unsigned long long rays = 0;
   for (;;) {
-    unsigned tile = 0;
-    if (lane == 0) tile = atomicAdd(a.next_tile, 1u);
-    tile = __shfl_sync(0xffffffffu, tile, 0);
-    if (tile >= (unsigned)n_tiles) break;
-    const int x = (int)(tile % (unsigned)tiles_x) * TILE_W + lane % TILE_W;
-    const int y = (int)(tile / (unsigned)tiles_x) * TILE_H + lane / TILE_W;
-    if (x < a.width && y < a.height) {
+    unsigned unit = 0;
+    if (lane == 0) unit = atomicAdd(a.next_tile, 1u);
+    unit = __shfl_sync(0xffffffffu, unit, 0);
+    if (unit >= n_units) break;
+    int x, y;
+    bool live;
+    if (a.pix) {
+      const unsigned i = unit * 32u + (unsigned)lane;
+      live = i < (unsigned)a.n_pix;
+      const int p = live ? __ldg(a.pix + i) : 0;
+      x = p % a.width;
+      y = p / a.width;
+      rows[threadIdx.x] = i;
+    } else {
+      x = (int)(unit % (unsigned)tiles_x) * TILE_W + lane % TILE_W;
+      y = (int)(unit / (unsigned)tiles_x) * TILE_H + lane / TILE_W;
+      live = x < a.width && y < a.height;
+      rows[threadIdx.x] = (unsigned)(y * a.width + x);
+    }
+    if (live) {
       const f3 acc = render_pixel<M>(a, x, y, rays);
-      float* out = a.accum + ((size_t)y * a.width + x) * 3;
+      float* out = a.accum + (size_t)rows[threadIdx.x] * 3;
       out[0] = acc.x;
       out[1] = acc.y;
       out[2] = acc.z;

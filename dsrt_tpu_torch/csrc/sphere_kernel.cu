@@ -19,7 +19,11 @@
 //   - the mixture's choose draw, then the light pick and two uniforms, or
 //     the two cosine-hemisphere draws.
 // The TPU kernel's lockstep lanes, sample regeneration and one-hot
-// gathers do not carry over.
+// gathers do not carry over.  Its lane set does: besides the frame's 2-D
+// grid, a second kernel over the same device code launches over a list
+// of pixels (adaptive sampling's active set), one thread an entry in a
+// 1-D grid of 128-thread blocks, the list ordered by 16x8 tile by the
+// wrapper so that a dense set keeps the frame grid's blocks.
 //
 // What bounds it on the H100: there is no tree; every query tests every
 // sphere and medium, so a thread's time is arithmetic on a short,
@@ -95,9 +99,10 @@ struct Args {
   const int* tex_w;
   const int* tex_h;
   const int* tex_off;
-  float* accum;  // [height][width][3]
+  const int* pix;  // null (the frame) or n_pix flat indices y * width + x
+  float* accum;    // [height][width][3], or [n_pix][3] with pix
   unsigned long long* nrays;
-  int width, height, cam_w, cam_h, spp;
+  int width, height, n_pix, cam_w, cam_h, spp;
   uint32_t salt, seed;
   int max_depth, rr_start;
   int n_mats, n_sph, n_med, n_lights, env, n_textures, pool_n;
@@ -339,23 +344,55 @@ __global__ void __launch_bounds__(BLOCK_W* BLOCK_H) sphere_render_kernel(const A
   if (tid == 0) atomicAdd(a.nrays, block_rays);
 }
 
+// The same over a pixel list: thread i of a 1-D grid renders entry i,
+// pixel pix[i], into row i of accum.  A kernel of its own, so that the
+// frame kernel keeps its pixel coordinates in the special registers and
+// its 72 registers (a run-time branch between the two in one kernel took
+// it to 93 and 5 resident blocks).
+__global__ void __launch_bounds__(BLOCK_W* BLOCK_H) sphere_list_kernel(const Args a) {
+  extern __shared__ float mats[];  // n_mats rows of 16
+  const int tid = threadIdx.y * BLOCK_W + threadIdx.x;
+  for (int i = tid; i < a.n_mats * 16; i += BLOCK_W * BLOCK_H) mats[i] = __ldg(a.mat + i);
+  __syncthreads();
+
+  const unsigned i = blockIdx.x * (unsigned)(BLOCK_W * BLOCK_H) + (unsigned)tid;
+  unsigned rays = 0;
+  if (i < (unsigned)a.n_pix) {
+    const int p = __ldg(a.pix + i);
+    const f3 acc = render_pixel(a, mats, p % a.width, p / a.width, rays);
+    float* out = a.accum + (size_t)i * 3;
+    out[0] = acc.x;
+    out[1] = acc.y;
+    out[2] = acc.z;
+  }
+  __shared__ unsigned long long block_rays;
+  if (tid == 0) block_rays = 0ull;
+  __syncthreads();
+  if (rays) atomicAdd(&block_rays, (unsigned long long)rays);
+  __syncthreads();
+  if (tid == 0) atomicAdd(a.nrays, block_rays);
+}
+
 }  // namespace sph
 }  // namespace dsrt
 
 extern "C" {
 
 // `params` is the scene's parameter vector (`Params`, its camera slot
-// unused), `cam` the camera vector
+// unused), `cam` the camera vector; `pix` null for the whole frame (a 2-D
+// grid of 16x8 blocks), else n_pix > 0 flat pixel indices y * width + x (a
+// 1-D grid of 128-thread blocks over the list, accum of n_pix rows)
 int dsrt_sphere_render(const float* params, const float* cam, const float* mat,
                        const float* pool, const int* tex_w, const int* tex_h, const int* tex_off,
-                       float* accum, unsigned long long* nrays, int width, int height, int cam_w,
-                       int cam_h, int spp, int salt, int seed, int max_depth, int rr_start,
-                       int n_mats, int n_sph, int n_med, int n_lights, int env, int n_textures,
-                       int pool_n, int flags, float rr_max_p, float t_min, float t_max,
-                       float env_rot, float env_scale, float time0, float dt, void* stream) {
+                       const int* pix, float* accum, unsigned long long* nrays, int width,
+                       int height, int cam_w, int cam_h, int spp, int salt, int seed,
+                       int max_depth, int rr_start, int n_mats, int n_sph, int n_med,
+                       int n_lights, int env, int n_textures, int pool_n, int flags, int n_pix,
+                       float rr_max_p, float t_min, float t_max, float env_rot, float env_scale,
+                       float time0, float dt, void* stream) {
   using namespace dsrt::sph;
   if (n_sph < 0 || n_sph > MAX_SPH || n_med < 0 || n_med > MAX_MED || n_lights < 0 ||
-      n_lights > MAX_LIGHTS)
+      n_lights > MAX_LIGHTS || (pix && n_pix <= 0))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = cudaMemcpyToSymbolAsync(P, params, sizeof(Params), 0,
@@ -370,10 +407,12 @@ int dsrt_sphere_render(const float* params, const float* cam, const float* mat,
   a.tex_w = tex_w;
   a.tex_h = tex_h;
   a.tex_off = tex_off;
+  a.pix = pix;
   a.accum = accum;
   a.nrays = nrays;
   a.width = width;
   a.height = height;
+  a.n_pix = n_pix;
   a.cam_w = cam_w;
   a.cam_h = cam_h;
   a.spp = spp;
@@ -397,9 +436,14 @@ int dsrt_sphere_render(const float* params, const float* cam, const float* mat,
   a.time0 = time0;
   a.dt = dt;
   dim3 block(BLOCK_W, BLOCK_H);
-  dim3 grid((width + BLOCK_W - 1) / BLOCK_W, (height + BLOCK_H - 1) / BLOCK_H);
   size_t smem = (size_t)n_mats * 16 * sizeof(float);
-  sphere_render_kernel<<<grid, block, smem, s>>>(a);
+  if (pix) {
+    dim3 grid(((unsigned)n_pix + BLOCK_W * BLOCK_H - 1) / (BLOCK_W * BLOCK_H));
+    sphere_list_kernel<<<grid, block, smem, s>>>(a);
+  } else {
+    dim3 grid((width + BLOCK_W - 1) / BLOCK_W, (height + BLOCK_H - 1) / BLOCK_H);
+    sphere_render_kernel<<<grid, block, smem, s>>>(a);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -2,12 +2,25 @@
 
 Per frame: pose -> float64 world->model transform -> camera aim ->
 render -> PNG.  The scene is compiled once; each frame only swaps the sun
-direction (`Scene.with_sun`).  `--mode` picks the renderer as the JAX
-driver does (dsrt_tpu/driver.py:317-350): `auto` takes the megakernel
-that covers the scene (`fused_kind`) and the split pipeline
-(`render_frame_wavefront`) for every other scene; `fused` falls back to
-wavefront the same way, with a note; `parity`, `wavefront` and `queue`
-force a renderer.  Wavefront's sample slots halve until they divide spp.
+direction (`Scene.with_sun`).  `--debug_shade` renders the flat-shade
+debug frame (`render_frame_debug`, sky from `--sky`); `--adaptive TOL`
+renders split-buffer rounds over the active pixels
+(`render_frame_adaptive`, `--spp` the cap, `--adaptive_chunk` samples a
+round); otherwise `--mode` picks the renderer as the JAX driver does
+(dsrt_tpu/driver.py:317-350): `auto` takes the megakernel that covers the
+scene (`fused_kind`) and the split pipeline (`render_frame_wavefront`)
+for every other scene; `fused` falls back to wavefront the same way, with
+a note; `parity`, `wavefront` and `queue` force a renderer.  Wavefront's
+sample slots halve until they divide spp.  `--dispatch_rays` is the
+fused frames' per-launch primary-ray budget (0: never chunk).
+
+Fused and wavefront frames are issued with `render_frame_async` and
+pipelined unless `--no_pipeline`: frame n is issued before frame n-1 is
+waited for and encoded, so the card renders one frame while the host
+encodes the one before; with `--no_pipeline` each frame is waited for
+and encoded before the next is issued.  The PNG bytes are the same
+either way.  `--profile DIR` writes a
+torch.profiler trace of the first rendered frame to DIR/trace.json.
 
 Usage:
     python -m dsrt_tpu_torch.driver --input_txt poses.txt --output_dir out \
@@ -15,7 +28,10 @@ Usage:
          --standin_tex panel.png] [--env_map sky.hdr --env_rotation 0 \
          --env_scale 1] [--width 800 --height 450] [--spp 1000] \
         [--device cuda] \
-        [--mode auto|fused|parity|wavefront|queue] [--spp_batch 8]
+        [--mode auto|fused|parity|wavefront|queue] [--spp_batch 8] \
+        [--adaptive 0.02 [--adaptive_chunk 4]] [--debug_shade \
+         [--sky solid|gradient]] [--no_pipeline] [--dispatch_rays N] \
+        [--profile trace_dir]
 
 `--device cuda` (the default) runs the CUDA kernels and fails when no
 CUDA device is present; `--device cpu` runs their plain PyTorch
@@ -40,9 +56,10 @@ from dsrt_tpu_torch.utils.timing import StageTimer, mrays_per_sec
 from dsrt_tpu_torch.utils.transform import pose_to_frame
 from dsrt_tpu_torch.models.scene import SceneBuilder
 from dsrt_tpu_torch.ops.camera import point_camera_at
-from dsrt_tpu_torch.render import (fused_kind, render_frame,
-                                   render_frame_fused, render_frame_queue,
-                                   render_frame_wavefront)
+from dsrt_tpu_torch.render import (FUSED_DISPATCH_RAYS, finish, fused_kind,
+                                   render_frame, render_frame_adaptive,
+                                   render_frame_async, render_frame_debug,
+                                   render_frame_queue)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -103,6 +120,28 @@ def build_parser() -> argparse.ArgumentParser:
                         "global work queue (auto-bands huge frames).")
     p.add_argument("--spp_batch", type=int, default=8,
                    help="concurrent sample slots per pixel (wavefront)")
+    p.add_argument("--adaptive", type=float, default=0.0,
+                   help="adaptive sampling tolerance (> 0 enables; --spp "
+                        "becomes the per-pixel cap; split-buffer "
+                        "convergence, scenes a megakernel covers)")
+    p.add_argument("--adaptive_chunk", type=int, default=0,
+                   help="samples per adaptive round (0: max(4, spp / 8))")
+    p.add_argument("--no_pipeline", action="store_true",
+                   help="render and encode each frame in turn (by default "
+                        "fused and wavefront frames are issued one frame "
+                        "ahead of the encode)")
+    p.add_argument("--debug_shade", action="store_true",
+                   help="flat-shade debug render: albedo x texture, lights "
+                        "white, the sky on a miss")
+    p.add_argument("--sky", choices=["solid", "gradient"], default="solid",
+                   help="debug-shade sky")
+    p.add_argument("--dispatch_rays", type=int, default=None,
+                   help="primary rays per megakernel launch; frames above "
+                        "it render as salted spp chunks (default "
+                        f"{FUSED_DISPATCH_RAYS}; 0: never chunk)")
+    p.add_argument("--profile", default="",
+                   help="write a torch.profiler trace of the first "
+                        "rendered frame to this directory (trace.json)")
     return p
 
 
@@ -120,20 +159,50 @@ def resolve_mode(mode: str, scene, cfg) -> str:
     return mode
 
 
-def render(mode: str, scene, cam, cfg, spp_batch: int):
-    """(u8 image, exact ray count or None) of one frame."""
-    if mode == "fused":
-        return render_frame_fused(scene, cam, cfg, with_count=True)
-    if mode == "wavefront":
-        batch = spp_batch
-        while cfg.spp % batch != 0:
-            batch //= 2
-        return render_frame_wavefront(scene, cam, cfg,
-                                      spp_batch=max(batch, 1),
-                                      with_count=True)
+def render(mode: str, scene, cam, cfg):
+    """(u8 image, exact ray count or None) of one parity or queue frame
+    (fused and wavefront frames go through render_frame_async)."""
     if mode == "queue":
         return render_frame_queue(scene, cam, cfg), None
     return render_frame(scene, cam, cfg, with_count=True)
+
+
+def start_profile(device: torch.device):
+    """A running torch.profiler session (CPU, and CUDA on the card)."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    prof = profile(activities=acts)
+    prof.__enter__()
+    return prof
+
+
+def stop_profile(prof, out_dir: str) -> None:
+    prof.__exit__(None, None, None)
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    print(f"  profiler trace written to {path}")
+
+
+def finish_frame(pending, timer: StageTimer, args) -> None:
+    """Wait for an issued frame, then encode it."""
+    idx, png, frame, t0, label = pending
+    img, nrays = finish(frame)
+    dt = time.perf_counter() - t0   # issue -> on the host
+    timer.log("render", dt)
+    print(f"  [frame {idx}] render ({label}) + wait: {dt*1e3:.0f} ms, "
+          f"{mrays_per_sec(nrays, dt):.1f} Mrays/s, {nrays} rays exact")
+    encode(png, img, timer, args)
+
+
+def encode(png: str, img, timer: StageTimer, args) -> None:
+    with timer.stage("encode"):
+        write_png(png, img)
+        if args.save_ppm:
+            write_ppm(png[:-4] + ".ppm", img)
+    print(f"Saved {png}")
 
 
 def resolve_device(name: str) -> torch.device:
@@ -201,9 +270,14 @@ def run(args, scene=None) -> int:
 
     cfg = RenderConfig(width=args.width, height=args.height, spp=args.spp,
                        max_depth=args.max_depth, vfov=args.vfov,
-                       gamma=args.gamma, seed=args.seed)
+                       gamma=args.gamma, seed=args.seed, sky_type=args.sky)
+    budget = (FUSED_DISPATCH_RAYS if args.dispatch_rays is None
+              else args.dispatch_rays)
     total_start = time.perf_counter()
     rendered = 0
+    pending = None   # the issued frame not yet encoded (pipeline)
+    prof = None
+    profiled = not args.profile
     for i, pose in enumerate(poses):
         if i < args.start_frame:
             continue
@@ -222,20 +296,56 @@ def run(args, scene=None) -> int:
                               vfov=args.vfov, width=args.width,
                               height=args.height, device=device)
         frame_scene = scene.with_sun(frame.sun_dir_model)
-        mode = resolve_mode(args.mode, frame_scene, cfg)
+        if not profiled:
+            prof, profiled = start_profile(device), True
         t0 = time.perf_counter()
-        img, nrays = render(mode, frame_scene, cam, cfg, args.spp_batch)
+        issued = None
+        if args.debug_shade:
+            label = "debug"
+            img, nrays = render_frame_debug(frame_scene, cam, cfg), None
+        elif args.adaptive > 0:
+            label = "adaptive"
+            img, stats = render_frame_adaptive(
+                frame_scene, cam, cfg, tol=args.adaptive,
+                chunk_spp=args.adaptive_chunk or None, with_count=True)
+            nrays = stats["rays"]
+            print(f"  [frame {i}] adaptive: mean spp {stats['mean_spp']:.1f}"
+                  f"/{cfg.spp} over {stats['rounds']} rounds")
+        else:
+            label = resolve_mode(args.mode, frame_scene, cfg)
+            if label in ("fused", "wavefront"):
+                issued = render_frame_async(frame_scene, cam, cfg, mode=label,
+                                            spp_batch=args.spp_batch,
+                                            budget=budget)
+            else:
+                img, nrays = render(label, frame_scene, cam, cfg)
+        label = f"{label} on {device.type}"
+        if prof is not None:
+            if issued is not None and issued.done is not None:
+                issued.done.synchronize()
+            stop_profile(prof, args.profile)
+            prof = None
+        if issued is not None:
+            # encode the previous frame while this one renders
+            if pending is not None:
+                finish_frame(pending, timer, args)
+                rendered += 1
+            pending = (i, png, issued, t0, label)
+            if args.no_pipeline:
+                finish_frame(pending, timer, args)
+                rendered += 1
+                pending = None
+            continue
         dt = time.perf_counter() - t0
         timer.log("render", dt)
         rays = ("" if nrays is None else
                 f", {mrays_per_sec(nrays, dt):.1f} Mrays/s, {nrays} rays "
                 "exact")
-        print(f"  render ({mode} on {device.type}): {dt*1e3:.0f} ms{rays}")
-        with timer.stage("encode"):
-            write_png(png, img)
-            if args.save_ppm:
-                write_ppm(png[:-4] + ".ppm", img)
-        print(f"Saved {png}")
+        print(f"  render ({label}): {dt*1e3:.0f} ms{rays}")
+        encode(png, img, timer, args)
+        rendered += 1
+    if pending is not None:
+        finish_frame(pending, timer, args)
         rendered += 1
 
     total = time.perf_counter() - total_start

@@ -44,19 +44,19 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 SIGNATURES = {
     # wide, tri, tri_shade, tri_aux, mat, pool, tex_w, tex_h, tex_off,
-    # cam, sun, params, accum, counters; width height cam_w cam_h spp salt
-    # seed max_depth rr_start; rr_max_p t_min t_max; n_wide tri_rows
-    # n_textures pool_n n_sph n_quads n_lights n_med env flags instance;
-    # env_rot env_scale time0 dt; stream
-    "dsrt_path_render": ([_P] * 14 + [_I] * 9 + [_F] * 3 + [_I] * 11
+    # cam, sun, params, pix, accum, counters; width height n_pix cam_w
+    # cam_h spp salt seed max_depth rr_start; rr_max_p t_min t_max; n_wide
+    # tri_rows n_textures pool_n n_sph n_quads n_lights n_med env flags
+    # instance; env_rot env_scale time0 dt; stream
+    "dsrt_path_render": ([_P] * 15 + [_I] * 10 + [_F] * 3 + [_I] * 11
                          + [_F] * 4 + [_P]),
     # instance -> resident blocks per SM (negative: a CUDA error)
     "dsrt_path_occupancy": [_I],
-    # params, cam, mat, pool, tex_w, tex_h, tex_off, accum, nrays; width
-    # height cam_w cam_h spp salt seed max_depth rr_start n_mats n_sph n_med
-    # n_lights env n_textures pool_n flags; rr_max_p t_min t_max env_rot
-    # env_scale time0 dt; stream
-    "dsrt_sphere_render": [_P] * 9 + [_I] * 17 + [_F] * 7 + [_P],
+    # params, cam, mat, pool, tex_w, tex_h, tex_off, pix, accum, nrays;
+    # width height cam_w cam_h spp salt seed max_depth rr_start n_mats
+    # n_sph n_med n_lights env n_textures pool_n flags n_pix; rr_max_p
+    # t_min t_max env_rot env_scale time0 dt; stream
+    "dsrt_sphere_render": [_P] * 10 + [_I] * 18 + [_F] * 7 + [_P],
     # material rows -> resident blocks per SM (negative: a CUDA error)
     "dsrt_sphere_occupancy": [_I],
     # fn n; in, got, lib, mismatches, stream

@@ -12,8 +12,12 @@ each launch then passes the camera vector, the runtime feature flags and
 the kernel instance the scene needs (`instance_of`).  The kernel walks
 the scene's 8-ary table `wide_pack` (csrc/wide_walk.cuh) with a stack of
 WIDE_STACK entries a thread, as deep as the TPU kernel's; a tree whose
-worst stack height `Scene.wide_stack` is deeper is refused.  The
-wrapper takes its plain version only for
+worst stack height `Scene.wide_stack` is deeper is refused.  A launch
+renders the whole frame or, as the TPU kernel's lane set does, a list of
+pixels (`pixels`, flat indices y * width + x): the wrapper checks the
+list, orders it by 8x4 tile (`tile_order`) and puts the rows back in the
+caller's order (`list_launch`, which the sphere kernel's wrapper shares).
+The wrapper takes its plain version only for
 tensors on the CPU; for CUDA tensors it launches its kernel or raises.
 LAUNCHES counts kernel launches, so a caller can show a run went through
 the kernels.
@@ -38,6 +42,8 @@ MAX_MED = 4
 # the wide walk's stack entries a thread holds (csrc/wide_walk.cuh
 # WIDE_STACK), the TPU kernel's (dsrt_tpu/ops/pallas_path.py:470)
 WIDE_STACK = 256
+# a warp's pixel tile (csrc/path_kernel.cuh TILE_W, TILE_H)
+TILE_W, TILE_H = 8, 4
 # floats of the packed records: spheres (8 each), quads (18), lights (2),
 # media (15)
 PARAM_LEN = 8 * MAX_SPH + 18 * MAX_QUADS + 2 * MAX_LIGHTS + 15 * MAX_MED
@@ -230,6 +236,54 @@ def _wide_tables(scene):
     return scene.wide_pack.data_ptr(), scene.tri_pack.data_ptr()
 
 
+def pixel_list(pixels, cfg, device) -> torch.Tensor:
+    """The caller's pixel list after the checks the kernels need: a 1-D
+    integer tensor on `device` of flat indices y * width + x inside the
+    cfg.width x cfg.height frame, as int64."""
+    if not isinstance(pixels, torch.Tensor) or pixels.dim() != 1 \
+            or pixels.dtype.is_floating_point or pixels.dtype == torch.bool:
+        raise ValueError("pixels: expected a 1-D integer tensor of flat "
+                         "indices y * width + x")
+    if pixels.device != torch.device(device):
+        raise ValueError(f"pixels on {pixels.device}, the scene on {device}")
+    pixels = pixels.to(torch.int64)
+    if pixels.numel():
+        lo, hi = torch.stack([pixels.min(), pixels.max()]).tolist()
+        if lo < 0 or hi >= cfg.width * cfg.height:
+            raise ValueError(f"pixels: indices {lo}..{hi} outside the "
+                             f"{cfg.width}x{cfg.height} frame")
+    return pixels
+
+
+def tile_order(pixels: torch.Tensor, width: int, tile_w: int,
+               tile_h: int) -> torch.Tensor:
+    """The permutation that sorts flat pixel indices by (tile_w x tile_h
+    tile, lane in tile): a kernel's group of tile_w * tile_h consecutive
+    entries is then one tile of the frame wherever the set is dense."""
+    x, y = pixels % width, pixels // width
+    tiles_x = -(-width // tile_w)
+    key = (((y // tile_h) * tiles_x + x // tile_w) * (tile_w * tile_h)
+           + (y % tile_h) * tile_w + x % tile_w)
+    return torch.argsort(key)
+
+
+def list_launch(pixels, launch, width: int, tile_w: int, tile_h: int):
+    """Run `launch(pix32, n)` on the list ordered by tile_order and
+    return its (n, 3) accumulator with row i for pixels[i], and its ray
+    count; an empty list launches nothing."""
+    n = pixels.numel()
+    if n == 0:
+        return (torch.zeros((0, 3), dtype=torch.float32,
+                            device=pixels.device),
+                torch.zeros((), dtype=torch.int64, device=pixels.device))
+    order = tile_order(pixels, width, tile_w, tile_h)
+    pix32 = pixels[order].to(torch.int32).contiguous()
+    accum, nrays = launch(pix32, n)
+    out = torch.empty_like(accum)
+    out[order] = accum
+    return out, nrays
+
+
 def occupancy(instance: int) -> int:
     """Resident blocks per SM of kernel instance `instance` on the card."""
     lib = build.load()
@@ -239,21 +293,33 @@ def occupancy(instance: int) -> int:
     return n
 
 
-def path_render_plain(scene, cam, cfg, spp: int, salt: int = 0):
+def path_render_plain(scene, cam, cfg, spp: int, salt: int = 0,
+                      pixels=None):
     """Plain version of the path kernel: for each pixel, the sum over
     `spp` samples of clamp01(L), as (height, width, 3) float32 with row
-    0 = the camera's bottom row, and the exact ray count (int64 tensor)."""
-    return render_samples(scene, cam, cfg, spp, salt)
+    0 = the camera's bottom row, and the exact ray count (int64 tensor).
+    With `pixels` (flat indices y * width + x) only those pixels, as
+    (n, 3) rows in the list's order."""
+    if pixels is None:
+        return render_samples(scene, cam, cfg, spp, salt)
+    pixels = pixel_list(pixels, cfg, scene.device)
+    return render_samples(scene, cam, cfg, spp, salt, px=pixels % cfg.width,
+                          py=pixels // cfg.width)
 
 
-def path_render(scene, cam, cfg, spp: int | None = None, salt: int = 0):
+def path_render(scene, cam, cfg, spp: int | None = None, salt: int = 0,
+                pixels=None):
     """Sum over `spp` samples of clamp01(L) per pixel, (height, width, 3)
-    float32, and the exact ray count (int64 tensor).  CPU scene: the
-    plain version; CUDA scene: kernel `dsrt_path_render`, one thread per
-    pixel running every sample, in warps that take 8x4 pixel tiles."""
+    float32, and the exact ray count (int64 tensor).  With `pixels`, a
+    1-D integer tensor of flat indices y * width + x on the scene's
+    device, only those pixels, as (n, 3) rows in the list's order (the
+    TPU kernel's lane set).  CPU scene: the plain version; CUDA scene:
+    kernel `dsrt_path_render`, one thread per pixel running every
+    sample, in warps that take 8x4 pixel tiles (with a list, 32 list
+    entries, the list ordered by tile)."""
     spp = cfg.resolved_spp() if spp is None else int(spp)
     if scene.device.type == "cpu":
-        return path_render_plain(scene, cam, cfg, spp, salt)
+        return path_render_plain(scene, cam, cfg, spp, salt, pixels)
     _require_cuda(scene.device)
     why = scope_error(scene, cfg)
     if why is not None:
@@ -277,32 +343,40 @@ def path_render(scene, cam, cfg, spp: int | None = None, salt: int = 0):
                          f"the kernel copies {PARAM_LEN}")
     cam_vec = cam.vector().to(dev).contiguous()
     sun_vec = sun_vector(scene, cfg.shadow_bias)
-    accum = torch.empty((cfg.height, cfg.width, 3), dtype=torch.float32,
-                        device=dev)
-    # the ray count, then the kernel's tile counter
-    counters = torch.zeros(2, dtype=torch.int64, device=dev)
     # a scene without triangles walks no tree: 0 wide nodes is a miss at
     # once
     n_wide = int(scene.wide_pack.shape[0]) if scene.n_tris > 0 else 0
-    rc = lib.dsrt_path_render(
-        wide, tri, scene.tri_shade.data_ptr(), scene.tri_aux.data_ptr(),
-        scene.mat_pack.data_ptr(), pool.data_ptr(), scene.tex_w.data_ptr(),
-        scene.tex_h.data_ptr(), scene.tex_off.data_ptr(),
-        _ptr(cam_vec, torch.float32, "camera"),
-        _ptr(sun_vec, torch.float32, "sun"),
-        _ptr(params, torch.float32, "params"), accum.data_ptr(),
-        counters.data_ptr(),
-        int(cfg.width), int(cfg.height), int(cam.width), int(cam.height),
-        spp, _i32(salt), _i32(scene.seed), int(cfg.resolved_max_depth()),
-        int(cfg.rr_start_depth), float(cfg.rr_max_p), float(cfg.hit_eps),
-        float(cfg.hit_tmax), n_wide, int(scene.tri_pack.shape[0]), n_tex,
-        int(pool.shape[0]), scene.n_spheres, scene.n_quads, scene.n_lights,
-        scene.n_media, int(scene.env_tex), flags_of(scene, cfg),
-        instance_of(scene, cfg),
-        float(np.float32(scene.env_rotation / (2.0 * np.pi))),
-        float(np.float32(scene.env_scale)), float(np.float32(cfg.time0)),
-        float(np.float32(cfg.time1 - cfg.time0)),
-        torch.cuda.current_stream(dev).cuda_stream)
-    build.check(lib, rc, "dsrt_path_render")
-    LAUNCHES["dsrt_path_render"] += 1
-    return accum, counters[0]
+
+    def launch(pix, n):
+        rows = (n,) if pix is not None else (cfg.height, cfg.width)
+        accum = torch.empty(rows + (3,), dtype=torch.float32, device=dev)
+        # the ray count, then the kernel's tile counter
+        counters = torch.zeros(2, dtype=torch.int64, device=dev)
+        rc = lib.dsrt_path_render(
+            wide, tri, scene.tri_shade.data_ptr(), scene.tri_aux.data_ptr(),
+            scene.mat_pack.data_ptr(), pool.data_ptr(),
+            scene.tex_w.data_ptr(), scene.tex_h.data_ptr(),
+            scene.tex_off.data_ptr(), _ptr(cam_vec, torch.float32, "camera"),
+            _ptr(sun_vec, torch.float32, "sun"),
+            _ptr(params, torch.float32, "params"),
+            None if pix is None else _ptr(pix, torch.int32, "pixels"),
+            accum.data_ptr(), counters.data_ptr(),
+            int(cfg.width), int(cfg.height), n, int(cam.width),
+            int(cam.height), spp, _i32(salt), _i32(scene.seed),
+            int(cfg.resolved_max_depth()), int(cfg.rr_start_depth),
+            float(cfg.rr_max_p), float(cfg.hit_eps), float(cfg.hit_tmax),
+            n_wide, int(scene.tri_pack.shape[0]), n_tex, int(pool.shape[0]),
+            scene.n_spheres, scene.n_quads, scene.n_lights, scene.n_media,
+            int(scene.env_tex), flags_of(scene, cfg), instance_of(scene, cfg),
+            float(np.float32(scene.env_rotation / (2.0 * np.pi))),
+            float(np.float32(scene.env_scale)), float(np.float32(cfg.time0)),
+            float(np.float32(cfg.time1 - cfg.time0)),
+            torch.cuda.current_stream(dev).cuda_stream)
+        build.check(lib, rc, "dsrt_path_render")
+        LAUNCHES["dsrt_path_render"] += 1
+        return accum, counters[0]
+
+    if pixels is None:
+        return launch(None, 0)
+    return list_launch(pixel_list(pixels, cfg, dev), launch, cfg.width,
+                       TILE_W, TILE_H)

@@ -371,17 +371,22 @@ def pixel_grid(width: int, height: int, device):
 
 
 def render_samples(scene, cam, cfg, spp: int, salt: int = 0,
-                   walk: str = "plain"):
+                   walk: str = "plain", px=None, py=None):
     """The plain renderer: for each pixel, the sum over `spp` samples of
     clamp01(L), as (height, width, 3) float32 with row 0 = the camera's
     bottom row, and the exact ray count (int64 tensor).  Per sample: the
     diagonal jitter pair, the lens draws with an aperture, then one
     shutter-time draw when cfg.time1 > cfg.time0, held for the whole
     path (dsrt_tpu/render.py `_render_lanes`).  `walk` as in
-    bounce_step."""
+    bounce_step.  With a pixel list (`px`, `py`: 1-D int64 tensors) it
+    renders only those pixels and returns their sums as (n, 3); each
+    pixel's stream is seeded from its own coordinates, so a pixel's sum
+    is the same in any list and in the whole frame."""
     dev = scene.device
     cam = cam.to(dev)
-    px, py = pixel_grid(cfg.width, cfg.height, dev)
+    listed = px is not None
+    if not listed:
+        px, py = pixel_grid(cfg.width, cfg.height, dev)
     state = rngmod.seed_pixels(px, py, cam.width, scene.seed, salt)
     valid = torch.ones(px.shape, dtype=torch.bool, device=dev)
     zero = torch.zeros(px.shape, dtype=torch.float32, device=dev)
@@ -408,5 +413,7 @@ def render_samples(scene, cam, cfg, spp: int, salt: int = 0,
                                    walk, sdir)
         acc = acc + L
         nrays = nrays + nr
-    img = torch.stack(list(acc), dim=-1).reshape(cfg.height, cfg.width, 3)
-    return img, nrays
+    sums = torch.stack(list(acc), dim=-1)
+    if listed:
+        return sums, nrays
+    return sums.reshape(cfg.height, cfg.width, 3), nrays

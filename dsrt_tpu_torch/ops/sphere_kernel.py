@@ -18,7 +18,9 @@ import numpy as np
 import torch
 
 from dsrt_tpu_torch.ops import build
-from dsrt_tpu_torch.ops.path_kernel import _cached, _i32, _ptr, _require_cuda
+from dsrt_tpu_torch.ops.path_kernel import (_cached, _i32, _ptr,
+                                            _require_cuda, list_launch,
+                                            pixel_list)
 from dsrt_tpu_torch.ops.shade import (MAX_LIGHTS, MAX_MED, MAX_SPH,
                                       check_scope, render_samples,
                                       sun_direction)
@@ -29,6 +31,8 @@ LAUNCHES = {"dsrt_sphere_render": 0}
 PARAM_LEN = 8 * MAX_SPH + 15 * MAX_MED + 4 * MAX_LIGHTS + 19 + 8
 CAM_AT = 8 * MAX_SPH + 15 * MAX_MED + 4 * MAX_LIGHTS   # the camera's slot
 MAX_MATS = 768   # material rows in the kernel's 48 KB of shared memory
+# a block's pixel tile (csrc/sphere_kernel.cu BLOCK_W, BLOCK_H)
+BLOCK_W, BLOCK_H = 16, 8
 # flag bits of the kernel's `flags` argument
 SUN_ON, PTEX, APERTURE, SHUTTER, MOVING = 1, 2, 4, 8, 16
 
@@ -128,7 +132,8 @@ def scene_params(scene, cfg) -> torch.Tensor:
 
 def launch_scalars(scene, cam, cfg, spp: int, salt: int = 0):
     """The kernel's int and float arguments, in the order of its C
-    signature (ops/build.py SIGNATURES)."""
+    signature (ops/build.py SIGNATURES) but the list length, which
+    follows the ints."""
     flags = ((SUN_ON if scene.sun_enabled else 0)
              | (PTEX if scene.has_ptex else 0)
              | (APERTURE if cfg.aperture > 0 else 0))
@@ -149,25 +154,35 @@ def launch_scalars(scene, cam, cfg, spp: int, salt: int = 0):
     return ints, floats
 
 
-def sphere_render_plain(scene, cam, cfg, spp: int, salt: int = 0):
+def sphere_render_plain(scene, cam, cfg, spp: int, salt: int = 0,
+                        pixels=None):
     """Plain version of the sphere kernel: for each pixel, the sum over
     `spp` samples of clamp01(L), as (height, width, 3) float32 with row
     0 = the camera's bottom row, and the exact ray count (int64 tensor).
-    Runs on the scene's device."""
+    With `pixels` (flat indices y * width + x) only those pixels, as
+    (n, 3) rows in the list's order.  Runs on the scene's device."""
     why = scope_error(scene, cfg)
     if why is not None:
         raise NotImplementedError(why)
-    return render_samples(scene, cam, cfg, spp, salt)
+    if pixels is None:
+        return render_samples(scene, cam, cfg, spp, salt)
+    pixels = pixel_list(pixels, cfg, scene.device)
+    return render_samples(scene, cam, cfg, spp, salt, px=pixels % cfg.width,
+                          py=pixels // cfg.width)
 
 
-def sphere_render(scene, cam, cfg, spp: int | None = None, salt: int = 0):
+def sphere_render(scene, cam, cfg, spp: int | None = None, salt: int = 0,
+                  pixels=None):
     """Sum over `spp` samples of clamp01(L) per pixel, (height, width, 3)
-    float32, and the exact ray count (int64 tensor).  CPU scene: the
-    plain version; CUDA scene: kernel `dsrt_sphere_render`, one thread
-    per pixel running every sample."""
+    float32, and the exact ray count (int64 tensor).  With `pixels`, a
+    1-D integer tensor of flat indices y * width + x on the scene's
+    device, only those pixels, as (n, 3) rows in the list's order.  CPU
+    scene: the plain version; CUDA scene: kernel `dsrt_sphere_render`,
+    one thread per pixel running every sample (with a list, a 1-D grid
+    over the list ordered by 16x8 tile)."""
     spp = cfg.resolved_spp() if spp is None else int(spp)
     if scene.device.type == "cpu":
-        return sphere_render_plain(scene, cam, cfg, spp, salt)
+        return sphere_render_plain(scene, cam, cfg, spp, salt, pixels)
     _require_cuda(scene.device)
     why = scope_error(scene, cfg)
     if why is not None:
@@ -188,19 +203,27 @@ def sphere_render(scene, cam, cfg, spp: int | None = None, salt: int = 0):
         if getattr(scene, name).numel() < max(scene.n_textures, 1):
             raise ValueError(f"{name}: fewer entries than textures")
     ints, floats = launch_scalars(scene, cam, cfg, spp, salt)
-    accum = torch.empty((cfg.height, cfg.width, 3), dtype=torch.float32,
-                        device=dev)
-    nrays = torch.zeros(1, dtype=torch.int64, device=dev)
-    rc = lib.dsrt_sphere_render(
-        _ptr(params, torch.float32, "params"),
-        _ptr(cam_vec, torch.float32, "camera"),
-        _ptr(mat, torch.float32, "mat_pack"),
-        _ptr(scene.tex_pool, torch.float32, "tex_pool"),
-        _ptr(scene.tex_w, torch.int32, "tex_w"),
-        _ptr(scene.tex_h, torch.int32, "tex_h"),
-        _ptr(scene.tex_off, torch.int32, "tex_off"),
-        accum.data_ptr(), nrays.data_ptr(), *ints, *floats,
-        torch.cuda.current_stream(dev).cuda_stream)
-    build.check(lib, rc, "dsrt_sphere_render")
-    LAUNCHES["dsrt_sphere_render"] += 1
-    return accum, nrays[0]
+
+    def launch(pix, n):
+        rows = (n,) if pix is not None else (cfg.height, cfg.width)
+        accum = torch.empty(rows + (3,), dtype=torch.float32, device=dev)
+        nrays = torch.zeros(1, dtype=torch.int64, device=dev)
+        rc = lib.dsrt_sphere_render(
+            _ptr(params, torch.float32, "params"),
+            _ptr(cam_vec, torch.float32, "camera"),
+            _ptr(mat, torch.float32, "mat_pack"),
+            _ptr(scene.tex_pool, torch.float32, "tex_pool"),
+            _ptr(scene.tex_w, torch.int32, "tex_w"),
+            _ptr(scene.tex_h, torch.int32, "tex_h"),
+            _ptr(scene.tex_off, torch.int32, "tex_off"),
+            None if pix is None else _ptr(pix, torch.int32, "pixels"),
+            accum.data_ptr(), nrays.data_ptr(), *ints, n, *floats,
+            torch.cuda.current_stream(dev).cuda_stream)
+        build.check(lib, rc, "dsrt_sphere_render")
+        LAUNCHES["dsrt_sphere_render"] += 1
+        return accum, nrays[0]
+
+    if pixels is None:
+        return launch(None, 0)
+    return list_launch(pixel_list(pixels, cfg, dev), launch, cfg.width,
+                       BLOCK_W, BLOCK_H)

@@ -251,6 +251,8 @@ def _patch_sphere(csrc: Path) -> None:
             seen["trace"] += 1
         elif s.startswith("__device__ f3 render_pixel("):
             where = None
+        elif "sphere_list_kernel(const Args a) {" in ln:
+            where = "list"   # the list kernel is not stamped
         if where == "trace":
             for call, probe in _CALLS:
                 if call in ln:
@@ -276,7 +278,7 @@ def _patch_sphere(csrc: Path) -> None:
         elif "sphere_render_kernel(const Args a) {" in ln:
             out.append("  const unsigned long long probe_t0 = probe_clock();\n")
             seen["entry"] += 1
-        elif "atomicAdd(a.nrays," in ln:
+        elif "atomicAdd(a.nrays," in ln and where != "list":
             out.append("  probe_stamp(probe_t0);\n")
             seen["exit"] += 1
         elif where == "hit" and s.startswith("Hit h{"):
