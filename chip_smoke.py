@@ -49,8 +49,16 @@ time and bound and its sums against the plain list version, and with every pixel
 fixed frame; the debug render (both skies) against the plain walk and
 the radiance against the path kernel's sums; the driver over four poses
 of the flagship pipelined and serial (PNG bytes identical, wall per
-frame of each), with --adaptive and with --debug_shade.  Each phase
-prints one line; any failure raises, so the exit code is nonzero.  The last two lines are the kernels' JSON summary and
+frame of each), with --adaptive and with --debug_shade.  Then the
+pipeline's two ends (phases 19-20): the RRDBNet-23 x4 upscaler on random
+weights from a seed, on the flagship frame (tiles on the card against a
+CPU copy of the module, x4 and x2; the whole frame's batched tiles
+against one tile at a time; its time, peak memory and bound, and with
+TF32 for the record), and the user's whole path: the orbit CLI on the
+card (at its default span against the same CLI on the host, its Kepler
+solve against NumPy's) and its poses through the driver with --upscale.
+Each phase prints its lines; any failure raises, so the exit code is
+nonzero.  The last two lines are the kernels' JSON summary and
 {"ok": true, "device": {...}}.  Needs one CUDA device; imports no JAX and
 nothing of the JAX package.
 """
@@ -102,6 +110,20 @@ LIST_FRAMES = {"dsrt_path_render": (800, 450, 32, 4),
 DEBUG_FRAME = (320, 180, 4)
 RADIANCE_FRAME = (64, 36, 2)
 PIPELINE_FRAME = (800, 450, 32)
+# the upscaler phase: the seed of the random RRDBNet weights, the tile
+# grid (dsrt_tpu_torch/models/esrgan.py defaults), TF32 dense peak of an
+# H100 SXM; the whole-pipeline phase's orbit span and step [s]
+ESRGAN_SEED = 0
+ESRGAN_TILE = 128
+ESRGAN_OVERLAP = 8
+H100_TF32_FLOPS = 494.7e12
+ORBIT_SPAN = ("1", "0.5")
+# the orbit CLI's default span (--time 600 --dt 1) and the tolerances of
+# its card path: pose components [m], eccentric anomaly [rad], position
+# [km]
+ORBIT_DEFAULT_SPAN = (600.0, 1.0)
+ORBIT_POSE_TOL_M = 1e-3
+KEPLER_TOL = (1e-12, 1e-6)
 
 
 def phase(name: str, msg: str) -> None:
@@ -388,6 +410,16 @@ def sphere_phases(dev, regs: dict) -> dict:
         acc_k1, n_k1 = sk.sphere_render(scene, cam, cfg1)
         acc_p1, n_p1 = sk.sphere_render_plain(scene, cam, cfg1, 1)
         err1 = float((acc_k1 - acc_p1).abs().max())
+        # the plain version at the launched shape, once, against the kernel
+        acc_kf, n_kf = sk.sphere_render(scene, cam, cfg)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        acc_pf, n_pf = sk.sphere_render_plain(scene, cam, cfg, spp)
+        stop.record()
+        torch.cuda.synchronize()
+        p_full = start.elapsed_time(stop)
+        err_f = float((acc_kf - acc_pf).abs().max())
         # bound: every query tests every sphere and every medium (flops of
         # trace.py sphere_pass / boundary_interval); tables in, accum out
         bound, bound_by = roofline_ms(
@@ -413,8 +445,11 @@ def sphere_phases(dev, regs: dict) -> dict:
               + (f"{idle:.1%}" if idle is not None else "not measured")
               + f" of a profiled frame ({prof_wall:.2f} ms); spp1 wrapper calls: "
               f"kernel {k1:.3f} ms, plain {p1:.1f} ms, max |d| {err1:.3g}, "
-              f"rays {int(n_k1)} vs {int(n_p1)}; launches {launches}")
-        require(torch.equal(acc_k1, acc_p1) and int(n_k1) == int(n_p1),
+              f"rays {int(n_k1)} vs {int(n_p1)}; at spp{spp}: plain "
+              f"{p_full:.1f} ms, max |d| {err_f:.3g}, rays {int(n_kf)} vs "
+              f"{int(n_pf)} (tolerance: identical); launches {launches}")
+        require(torch.equal(acc_k1, acc_p1) and int(n_k1) == int(n_p1)
+                and torch.equal(acc_kf, acc_pf) and int(n_kf) == int(n_pf),
                 f"sphere kernel and plain disagree at the {name} frame")
         entry = {
             "name": "dsrt_sphere_render", "route": "cuda",
@@ -431,6 +466,7 @@ def sphere_phases(dev, regs: dict) -> dict:
             "frames": dict((entry or {}).get("frames", {}), **{name: {
                 "shape": f"{w}x{h} spp{spp} max_depth50",
                 "frame_kernel_ms": k_full, "device_ms": k_dev,
+                "plain_ms": p_full, "max_abs_err": err_f,
                 "bound_ms": frame_bound, "bound_by": frame_bound_by,
                 "frame_ms": secs * 1e3, "rays": rays,
                 "idle_share": idle,
@@ -1496,6 +1532,290 @@ def pipeline_phase(dev, flagship) -> dict:
             "hidden_ms_per_frame": hidden, **extras}
 
 
+def lively_params(rng, scale: int) -> dict:
+    """RRDBNet-23 x`scale` parameters (num_feat 64, num_grow_ch 32): the
+    model's init_params with weights x5 and N(0, 0.05) biases drawn from
+    `rng` in the pytree's order.  init_params alone gives outputs of
+    ~1e-4, so every u8 value would be 0."""
+    from dsrt_tpu_torch.models import esrgan
+    params = esrgan.init_params(rng, esrgan.rrdbnet_spec(scale=scale))
+
+    def walk(node):
+        if isinstance(node, dict):
+            if set(node) == {"w", "b"}:
+                return {"w": node["w"] * np.float32(5),
+                        "b": rng.normal(0.0, 0.05, node["b"].shape
+                                        ).astype(np.float32)}
+            return {k: walk(v) for k, v in node.items()}
+        return [walk(v) for v in node]
+    return walk(params)
+
+
+def conv_work(net, h: int, w: int):
+    """(FLOPs, bytes) of the network's convs on one (h, w) input: 2 per
+    multiply-add, and each conv's float32 input read and output written
+    once.  The trunk runs on the (unshuffled) input grid, conv_up1 on 4x
+    its texels, conv_up2, conv_hr and conv_last on 16x."""
+    unshuffle = {4: 1, 2: 2, 1: 4}[net.scale]
+    grid = (h // unshuffle) * (w // unshuffle)
+    up = {"conv_up1": 4, "conv_up2": 16, "conv_hr": 16, "conv_last": 16}
+    flops = nbytes = 0
+    for name, m in net.named_modules():
+        if isinstance(m, torch.nn.Conv2d):
+            texels = grid * up.get(name, 1)
+            flops += 2 * texels * m.in_channels * m.out_channels * 9
+            nbytes += 4 * texels * (m.in_channels + m.out_channels)
+    return flops, nbytes
+
+
+def least_event_ms(fn, reps: int):
+    """Least and all of `reps` CUDA-event times (ms) of single calls."""
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
+    return min(times), times
+
+
+def u8_agreement(a, b):
+    """(share of identical u8 values, max |d|)."""
+    d = np.abs(a.astype(np.int32) - b.astype(np.int32))
+    return float((d == 0).mean()), int(d.max())
+
+
+def esrgan_phase(dev, frame: np.ndarray, card: str) -> dict:
+    """Phase 19: RRDBNet-23 (num_feat 64, num_grow_ch 32) on random
+    weights from ESRGAN_SEED, on the flagship frame of phase 5.  (a) The
+    top-left tile and the most lit interior tile on the card against a
+    CPU copy of the module; (b) the whole frame through upscale_u8 (tiles
+    in batches) against the same tiles one at a time; (c) as (a) for the
+    x2 model on the lit tile; (d) the whole frame's time (least of 3, CUDA
+    events), peak memory, the bound from the convs' counted work, and the
+    same call with cuDNN's TF32 on, for the record."""
+    from unittest import mock
+    from dsrt_tpu_torch.models import esrgan
+    from dsrt_tpu_torch.ops.traverse import roofline_ms
+    x = frame.astype(np.float32) / 255.0
+    tiles, origins = esrgan.tile_grid(x, ESRGAN_TILE, ESRGAN_OVERLAP)
+    ys = sorted({o[0] for o in origins})
+    xs = sorted({o[1] for o in origins})
+    inner = [i for i, (y0, x0) in enumerate(origins)
+             if y0 not in (ys[0], ys[-1]) and x0 not in (xs[0], xs[-1])]
+    lit = max(inner, key=lambda i: float((tiles[i] > 0).mean()))
+
+    def to_u8(y):
+        return np.clip(np.rint(y * 255.0), 0, 255).astype(np.uint8)
+
+    def tile_check(tag, scale, sel):
+        params = lively_params(np.random.default_rng(ESRGAN_SEED), scale)
+        net = esrgan.rrdbnet_from_params(params, scale, device=dev)
+        card_out = esrgan.forward_tiles(net, tiles[sel])
+        cpu_out = esrgan.forward_tiles(
+            esrgan.rrdbnet_from_params(params, scale, device="cpu"),
+            tiles[sel])
+        rel = float(np.abs(card_out - cpu_out).max()
+                    / np.abs(cpu_out).max())
+        same, dmax = u8_agreement(to_u8(card_out), to_u8(cpu_out))
+        u8 = to_u8(cpu_out)
+        inside = float(((u8 > 0) & (u8 < 255)).mean())
+        phase("19 esrgan",
+              f"{card}; ({tag}) x{scale}, tiles "
+              f"{', '.join(str(origins[i]) for i in sel)} (lit "
+              f"{', '.join(f'{(tiles[i] > 0).mean():.3f}' for i in sel)}) "
+              f"on the card against a CPU copy: float max |d| {rel:.3g} of "
+              f"max |out|, u8 identical {same:.4%}, max |d| {dmax}, u8 "
+              f"inside (0, 255) {inside:.1%} (tolerance: <= 1e-4, >= "
+              f"99.9%, <= 1; >= 25% inside)")
+        require(rel <= 1e-4 and same >= 0.999 and dmax <= 1
+                and inside >= 0.25, f"RRDBNet x{scale} on the card "
+                                    "disagrees with its CPU copy")
+        return net, dict(rel_err=rel, u8_identical=same, u8_max_d=dmax,
+                         inside=inside, tiles=[origins[i] for i in sel])
+
+    net, check_a = tile_check("a", 4, [0, lit])
+    # (b) the whole frame: batched tiles against one tile at a time
+    batch = esrgan.tile_batch(net, ESRGAN_TILE, len(origins))
+    whole = esrgan.upscale_u8(net, frame)
+    h, w, _ = frame.shape
+    singly = to_u8(esrgan.stitch(
+        np.concatenate([esrgan.forward_tiles(net, t[None]) for t in tiles]),
+        origins, h, w, ESRGAN_TILE, ESRGAN_OVERLAP))
+    same_b, dmax_b = u8_agreement(whole, singly)
+    phase("19 esrgan",
+          f"{card}; (b) x4 {w}x{h} -> {whole.shape[1]}x{whole.shape[0]}, "
+          f"{len(origins)} tiles of {ESRGAN_TILE} (overlap "
+          f"{ESRGAN_OVERLAP}) in batches of {batch} against one at a time: "
+          f"u8 identical {same_b:.4%}, max |d| {dmax_b} (tolerance: >= "
+          f"99.9%, <= 1)")
+    require(whole.shape == (4 * h, 4 * w, 3) and same_b >= 0.999
+            and dmax_b <= 1, "batched tiles differ from single tiles")
+    _, check_c = tile_check("c", 2, [lit])
+    # (d) times, memory, bound; TF32 for the record
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, times = least_event_ms(lambda: esrgan.upscale_u8(net, frame), 3)
+    peak = torch.cuda.max_memory_allocated()
+    fwd_ms, _ = least_event_ms(lambda: esrgan.forward_tiles(net, tiles), 3)
+    flops, nbytes = conv_work(net, ESRGAN_TILE, ESRGAN_TILE)
+    flops, nbytes = flops * len(origins), nbytes * len(origins)
+    bound, bound_by = roofline_ms(flops, nbytes)
+    bound_tf32 = max(flops / H100_TF32_FLOPS, nbytes / 3.35e12) * 1e3
+
+    def tf32_convs():
+        cudnn = torch.backends.cudnn
+        return cudnn.flags(enabled=True, benchmark=cudnn.benchmark,
+                           deterministic=cudnn.deterministic,
+                           allow_tf32=True)
+
+    # the same call with its FP32 scope swapped for TF32
+    with mock.patch.object(esrgan, "fp32_convs", tf32_convs):
+        out_tf32 = esrgan.upscale_u8(net, frame)
+        ms_tf32, times_tf32 = least_event_ms(
+            lambda: esrgan.upscale_u8(net, frame), 3)
+    same_t, dmax_t = u8_agreement(out_tf32, whole)
+    phase("19 esrgan",
+          f"{card}; (d) x4 {w}x{h} whole frame (upscale_u8, u8 in and out "
+          f"on the host): {ms:.1f} ms (least of "
+          f"{', '.join(f'{t:.1f}' for t in times)}), the {len(origins)} "
+          f"tiles' forward alone {fwd_ms:.1f} ms; peak device memory "
+          f"{peak / 2**30:.2f} GiB; bound {bound:.1f} ms by {bound_by} "
+          f"({flops / 1e12:.2f} TFLOP at 67 TFLOP/s FP32, "
+          f"{nbytes / 1e9:.1f} GB of conv activations at 3.35 TB/s; with "
+          f"TF32 tensor cores {bound_tf32:.1f} ms); TF32 on (for the "
+          f"record): {ms_tf32:.1f} ms, u8 identical to FP32 {same_t:.4%}, "
+          f"max |d| {dmax_t}")
+    return dict(card=card, check_a=check_a, check_c=check_c,
+                batch=batch, batched_vs_single=dict(u8_identical=same_b,
+                                                    u8_max_d=dmax_b),
+                frame_ms=ms, frame_ms_all=times, forward_ms=fwd_ms,
+                peak_bytes=peak, flops=flops, conv_bytes=nbytes,
+                bound_ms=bound, bound_by=bound_by,
+                bound_ms_tf32=bound_tf32, tf32_ms=ms_tf32,
+                tf32_ms_all=times_tf32,
+                tf32_vs_fp32=dict(u8_identical=same_t, u8_max_d=dmax_t))
+
+
+def pipeline_ends_phase(dev, card: str) -> dict:
+    """Phase 20: the user's whole path on the card.  The port's orbit CLI
+    runs at its default span on the card and on the host, and the two
+    pose files must agree; its Kepler solve on the card is held against
+    the NumPy copies.  Then the CLI writes a short span's poses on the
+    card and the driver renders them (the textured stand-in,
+    PIPELINE_FRAME) with --upscale in a subprocess whose HOME caches a
+    seeded RRDBNet-23 x4 checkpoint (basicsr keys under params_ema), so
+    it takes the rrdbnet backend by its normal route."""
+    from dsrt_tpu_torch.models import esrgan
+    from dsrt_tpu_torch.models.mesh_gen import write_panel_texture
+    from dsrt_tpu_torch.orbit import cli as orbit_cli
+    from dsrt_tpu_torch.orbit import kepler, trajectory
+    from dsrt_tpu_torch.utils.image_io import read_png
+    from dsrt_tpu_torch.utils.pose import read_pose_file
+    span, step = ORBIT_DEFAULT_SPAN
+    # the Kepler solve on the card against NumPy's at the default span
+    el = trajectory.OrbitElements()
+    ang = [np.deg2rad(x) for x in (el.incl_deg, el.raan_deg, el.argp_deg)]
+    M = np.sqrt(kepler.MU_MOON / el.a ** 3) * (-span + step * np.arange(
+        int(round(span / step)) + 1))
+    E = kepler.solve_kepler_E_torch(M, el.e, device=dev)
+    f = kepler.true_anomaly_from_E_torch(E, el.e, device=dev)
+    r = kepler.coe_to_rv_torch(el.a, el.e, *ang, f, device=dev)[0]
+    E_ref = kepler.solve_kepler_E(M, el.e)
+    r_ref = np.stack([kepler.coe_to_rv(el.a, el.e, *ang, fk)[0]
+                      for fk in kepler.true_anomaly_from_E(E_ref, el.e)])
+    dE = float(np.abs(E.cpu().numpy() - E_ref).max())
+    dr = float(np.abs(r.cpu().numpy() - r_ref).max())
+    # the CLI at its default span, on the card and on the host
+    files, cli_s = {}, {}
+    for where in (dev.type, "cpu"):
+        files[where] = os.path.join(OUT, f"orbit_default_{where}.txt")
+        t0 = time.perf_counter()
+        rc = orbit_cli.main(["--device", where, "--txt", files[where]])
+        cli_s[where] = time.perf_counter() - t0
+        require(rc == 0, f"orbit CLI --device {where}")
+    card_poses = np.loadtxt(files[dev.type])
+    host_poses = np.loadtxt(files["cpu"])
+    same_shape = card_poses.shape == host_poses.shape
+    d_pose = (float(np.abs(card_poses - host_poses).max()) if same_shape
+              else float("inf"))
+    phase("20 pipeline",
+          f"{card}; orbit CLI at its default span ({span:g} s at {step:g} "
+          f"s): {len(card_poses)} poses on the card in "
+          f"{cli_s[dev.type]:.3f} s, {len(host_poses)} on the host in "
+          f"{cli_s['cpu']:.3f} s, pose max |d| {d_pose:.3e} m; Kepler on "
+          f"the card against NumPy: E max |d| {dE:.3e} rad, r max |d| "
+          f"{dr:.3e} km (tolerance: <= {ORBIT_POSE_TOL_M:g} m, "
+          f"<= {KEPLER_TOL[0]:g} rad, <= {KEPLER_TOL[1]:g} km)")
+    require(same_shape and len(card_poses) >= span / step - 10
+            and d_pose <= ORBIT_POSE_TOL_M, "orbit CLI card vs host poses")
+    require(dE <= KEPLER_TOL[0] and dr <= KEPLER_TOL[1],
+            "Kepler solve on the card vs NumPy")
+    w, h, spp = PIPELINE_FRAME
+    poses = os.path.join(OUT, "orbit_poses.txt")
+    rc_orbit = orbit_cli.main(["--time", ORBIT_SPAN[0], "--dt",
+                               ORBIT_SPAN[1], "--device", dev.type,
+                               "--txt", poses])
+    n_poses = len(read_pose_file(poses))
+    require(rc_orbit == 0 and n_poses >= 2, "orbit CLI poses")
+    out_dir = os.path.join(OUT, "frames_orbit")
+    tsv = os.path.join(OUT, "timings_orbit.tsv")
+    with tempfile.TemporaryDirectory() as td:
+        weights = os.path.join(td, ".cache", "realesrgan",
+                               "RealESRGAN_x4plus.pth")
+        os.makedirs(os.path.dirname(weights))
+        torch.save({"params_ema": esrgan.state_dict_from_params(
+            lively_params(np.random.default_rng(ESRGAN_SEED), 4))}, weights)
+        tex = os.path.join(td, "panel.png")
+        write_panel_texture(tex)
+        env = dict(os.environ, HOME=td, PYTHONPATH=os.pathsep.join(
+            filter(None, (ROOT, os.environ.get("PYTHONPATH")))))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "dsrt_tpu_torch.driver", "--input_txt",
+             poses, "--output_dir", out_dir, "--wipe", "--width", str(w),
+             "--height", str(h), "--spp", str(spp), "--standin_detail",
+             "12", "--standin_tex", tex, "--upscale", "--timings_tsv", tsv,
+             "--device", dev.type], cwd=ROOT, env=env, capture_output=True,
+            text=True, timeout=600)
+        wall = time.perf_counter() - t0
+    with open(os.path.join(OUT, "driver_orbit.log"), "w") as fh:
+        fh.write(proc.stdout + "\n--- stderr ---\n" + proc.stderr)
+    frames = sorted(f for f in os.listdir(out_dir) if f.endswith(".png"))
+    up_dir = out_dir + "_upscaled"
+    shapes = [read_png(os.path.join(up_dir, f)).shape
+              for f in sorted(os.listdir(up_dir)) if f.endswith(".png")]
+    stages = {}
+    with open(tsv) as fh:
+        for ln in fh.readlines()[1:]:
+            stage, ns, _ = ln.split("\t")
+            stages.setdefault(stage, []).append(int(ns) / 1e6)
+    rrdbnet = "via rrdbnet" in proc.stdout
+    phase("20 pipeline",
+          f"{card}; orbit CLI on the card: {n_poses} poses; driver --upscale "
+          f"{w}x{h} spp{spp} textured stand-in: rc {proc.returncode}, "
+          f"{len(frames)} frames, backend rrdbnet {rrdbnet}, upscaled "
+          f"{len(shapes)} PNGs {sorted(set(shapes))}; wall {wall:.1f} s "
+          f"(process start to exit), render stage "
+          f"{', '.join(f'{x:.1f}' for x in stages.get('render', []))} ms, "
+          f"encode {', '.join(f'{x:.1f}' for x in stages.get('encode', []))}"
+          f" ms, scene compile "
+          f"{sum(stages.get('scene_compile', [])) / 1e3:.1f} s")
+    require(proc.returncode == 0, "driver --upscale failed: "
+            + proc.stderr[-2000:])
+    require(rrdbnet and len(frames) == n_poses and len(shapes) == n_poses
+            and all(s == (4 * h, 4 * w, 3) for s in shapes),
+            "driver --upscale did not write 4x frames through the RRDBNet")
+    return dict(card=card, poses=n_poses, wall_s=wall, stages_ms=stages,
+                upscaled=len(shapes),
+                orbit_default=dict(poses=len(card_poses), pose_max_d_m=d_pose,
+                                   kepler_E_max_d=dE, kepler_r_max_d_km=dr,
+                                   cli_s=cli_s))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1759,6 +2079,13 @@ def main() -> int:
     debug = debug_phase(dev, scene)
     pipeline = pipeline_phase(dev, scene)
     phase("15-18", f"{time.perf_counter() - t0:.0f} s")
+    # 19-20: the pipeline's two ends, the upscaler and the pose generator
+    t0 = time.perf_counter()
+    ends = {"esrgan": esrgan_phase(dev, img, card),
+            "pipeline": pipeline_ends_phase(dev, card)}
+    with open(os.path.join(OUT, "pipeline_ends.json"), "w") as fh:
+        json.dump(ends, fh, indent=1)
+    phase("19-20", f"{time.perf_counter() - t0:.0f} s")
     # phase 3's launches are microbenchmark launches too; phases 5 and 14
     # (the megakernels' frames, --mode auto's path) required that no
     # traversal kernel was launched

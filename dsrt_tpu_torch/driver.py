@@ -21,6 +21,14 @@ encodes the one before; with `--no_pipeline` each frame is waited for
 and encoded before the next is issued.  The PNG bytes are the same
 either way.  `--profile DIR` writes a
 torch.profiler trace of the first rendered frame to DIR/trace.json.
+`--upscale` then runs the super-resolution post-process over the output
+directory into `<output_dir>_upscaled` (scripts/upsample.py
+`process_folder`, x4, backend auto: the RRDBNet on cached weights, else
+bicubic) on the same device; a failed upscale fails the run.
+
+The JAX driver's TPU execution knobs (`--block_h`, `--pallas`, `--pops`,
+`--sun_pops`) are refused with an error: they set Pallas mechanism the
+port does not have (docs/MIGRATION.md).
 
 Usage:
     python -m dsrt_tpu_torch.driver --input_txt poses.txt --output_dir out \
@@ -31,7 +39,7 @@ Usage:
         [--mode auto|fused|parity|wavefront|queue] [--spp_batch 8] \
         [--adaptive 0.02 [--adaptive_chunk 4]] [--debug_shade \
          [--sky solid|gradient]] [--no_pipeline] [--dispatch_rays N] \
-        [--profile trace_dir]
+        [--profile trace_dir] [--upscale]
 
 `--device cuda` (the default) runs the CUDA kernels and fails when no
 CUDA device is present; `--device cpu` runs their plain PyTorch
@@ -62,6 +70,17 @@ from dsrt_tpu_torch.render import (FUSED_DISPATCH_RAYS, finish, fused_kind,
                                    render_frame_queue)
 
 
+# the JAX driver's TPU execution knobs (dsrt_tpu/driver.py:120-138)
+TPU_FLAGS = ("--block_h", "--pallas", "--pops", "--sun_pops")
+
+
+class RefuseTPUFlag(argparse.Action):
+    def __call__(self, parser, namespace, values, option_string=None):
+        parser.error(f"{option_string} sets TPU kernel mechanism that the "
+                     "PyTorch/CUDA port does not have; see "
+                     "docs/MIGRATION.md")
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="dsrt_tpu_torch.driver",
@@ -69,6 +88,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--input_txt", default="",
                    help="pose file (orbit sim output)")
     p.add_argument("--output_dir", default="render_output")
+    p.add_argument("--upscale", action="store_true",
+                   help="run the super-resolution upsampler (x4) over the "
+                        "output dir into <output_dir>_upscaled")
     p.add_argument("--width", type=int, default=800)
     p.add_argument("--height", type=int, default=450)
     p.add_argument("--spp", type=int, default=1000)
@@ -142,6 +164,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile", default="",
                    help="write a torch.profiler trace of the first "
                         "rendered frame to this directory (trace.json)")
+    for flag in TPU_FLAGS:
+        p.add_argument(flag, action=RefuseTPUFlag,
+                       help="TPU kernel mechanism of the JAX driver; "
+                            "refused here (docs/MIGRATION.md)")
     return p
 
 
@@ -352,6 +378,13 @@ def run(args, scene=None) -> int:
     print(f"\nTotal runtime: {total:.1f} s ({rendered} frames)")
     if args.timings_tsv:
         timer.write_tsv(args.timings_tsv)
+
+    if args.upscale:
+        from dsrt_tpu_torch.scripts.upsample import process_folder
+        process_folder(args.output_dir, args.output_dir + "_upscaled",
+                       scale=4, device=device)
+    else:
+        print("Upscaling disabled (use --upscale to enable).")
     return 0
 
 

@@ -53,6 +53,7 @@ from dsrt_tpu_torch.ops.linalg import (V3, clamp01, const, f64_op, normalize,
 from dsrt_tpu_torch.ops.shade import pixel_grid, render_samples
 from dsrt_tpu_torch.ops.trace import scene_hit_flat
 from dsrt_tpu_torch.ops.wavefront import trace_accumulate, trace_queue
+from dsrt_tpu_torch.utils.debug import check_accumulator
 
 # primary rays (width * height * spp) per kernel launch
 FUSED_DISPATCH_RAYS = 256 * 1024 * 1024
@@ -92,7 +93,9 @@ def lanes_to_image(vals: torch.Tensor, ty: int, tx: int) -> torch.Tensor:
 def tonemap_device(accum: torch.Tensor, cfg: RenderConfig,
                    spp: int) -> torch.Tensor:
     """(height, width, 3) sums of clamp01(L) over `spp` samples -> u8
-    image tensor on the sums' device, row 0 = top."""
+    image tensor on the sums' device, row 0 = top.  Inside
+    utils.debug.debug_nans a non-finite sum raises FloatingPointError."""
+    check_accumulator(accum)
     inv_spp = float(np.float32(1.0 / spp))
     inv_gamma = float(np.float32(1.0 / cfg.gamma))
     c = accum * inv_spp
@@ -249,6 +252,7 @@ def render_frame_adaptive(scene, cam, cfg: RenderConfig, tol: float = 0.02,
         done = err <= tol * (lum + 0.02)
         active[idx[done]] = False
 
+    check_accumulator(sums)
     n_tot = np.maximum(ns.sum(0), 1)[:, None]
     c = sums.sum(0) / n_tot
     c = np.maximum(c, 0.0)

@@ -78,10 +78,34 @@ def test_driver_resume_and_ppm(tmp_path):
 
 
 @pytest.mark.parametrize("flag", ["--mode", "--shard", "--shard_sp",
-                                  "--hosts", "--host_id", "--upscale"])
+                                  "--hosts", "--host_id", "--block_h",
+                                  "--pallas", "--pops", "--sun_pops"])
 def test_driver_refuses_unported_flags(flag):
     with pytest.raises(SystemExit):
         driver.build_parser().parse_args([flag, "1"])
+
+
+@pytest.mark.parametrize("flag", driver.TPU_FLAGS)
+def test_driver_names_the_migration_guide_for_tpu_flags(flag, capsys):
+    with pytest.raises(SystemExit) as exc:
+        driver.main([flag, "2", "--device", "cpu"])
+    assert exc.value.code == 2
+    err = capsys.readouterr().err
+    assert flag in err and "docs/MIGRATION.md" in err
+
+
+def test_driver_timings_parse_with_the_performance_script(tmp_path):
+    from scripts.performance import read_tsv
+    tsv = tmp_path / "t.tsv"
+    assert driver.main(["--input_txt", _poses(tmp_path), "--output_dir",
+                        str(tmp_path / "out"), "--device", "cpu", "--width",
+                        "16", "--height", "12", "--spp", "1", "--max_depth",
+                        "3", "--standin_detail", "1", "--timings_tsv",
+                        str(tsv)]) == 0
+    stages = read_tsv(str(tsv))
+    assert {"mesh_load", "scene_compile", "render", "encode"} <= set(stages)
+    assert len(stages["render"]) == len(stages["encode"]) == 2
+    assert all(ms >= 0 for ds in stages.values() for ms in ds)
 
 
 def _write_smooth_obj(path):

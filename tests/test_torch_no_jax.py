@@ -65,6 +65,12 @@ def test_render_in_subprocess_leaves_jax_unimported():
         "img = render_frame_fused(s, cam, RenderConfig(width=8, height=6, "
         "spp=1, max_depth=3))\n"
         "assert img.shape == (6, 8, 3)\n"
+        "import dsrt_tpu_torch.models.esrgan, dsrt_tpu_torch.utils.debug\n"
+        "import dsrt_tpu_torch.scripts.upsample\n"
+        "from dsrt_tpu_torch.orbit import cli, cr3bp, ephemeris, kepler\n"
+        "from dsrt_tpu_torch.orbit import trajectory\n"
+        "E = kepler.solve_kepler_E_torch([0.5, 1.0], 0.2, device='cpu')\n"
+        "assert str(E.dtype) == 'torch.float64'\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('dsrt_tpu', 'jax', 'jaxlib', 'bench')]\n"
