@@ -57,6 +57,16 @@ against one tile at a time; its time, peak memory and bound, and with
 TF32 for the record), and the user's whole path: the orbit CLI on the
 card (at its default span against the same CLI on the host, its Kepler
 solve against NumPy's) and its poses through the driver with --upscale.
+Then the sharded renders (phase 21, dsrt_tpu_torch/parallel/): a
+1-rank NCCL mesh's flagship frame; two ranks sharing the card (gloo)
+rendering the flagship and rtiow dp-sharded, one list launch a rank,
+each rank's list launch timed and bounded, and the sharded call and its
+gather timed; the same ranks rendering the flagship at sp = 2 through
+the traversal kernels against the single-process slice emulation
+through the plain walk, with the kernels timed, bounded and held
+against the plain walk at that frame's own waves; the driver under
+torch.distributed.run with --shard and as two --hosts processes against
+phase 6's PNGs.
 Each phase prints its lines; any failure raises, so the exit code is
 nonzero.  The last two lines are the kernels' JSON summary and
 {"ok": true, "device": {...}}.  Needs one CUDA device; imports no JAX and
@@ -65,9 +75,13 @@ nothing of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import json
 import os
+import re
+import signal
 import subprocess
 import sys
 import tempfile
@@ -124,10 +138,23 @@ ORBIT_SPAN = ("1", "0.5")
 ORBIT_DEFAULT_SPAN = (600.0, 1.0)
 ORBIT_POSE_TOL_M = 1e-3
 KEPLER_TOL = (1e-12, 1e-6)
+# the tables the path kernel reads (its bound's bytes)
+PATH_TABLES = ("wide_pack", "tri_pack", "tri_shade", "mat_pack", "tex_pool")
+# the sharded phase: ranks sharing the card (dp of the megakernel frames,
+# sp of the flagship's sample slices), the timed repetitions, and each
+# group of rank processes' time limit [s]
+SHARD_DP = 2
+SHARD_REPS = 5
+SHARD_TIMEOUT = 600
 
 
 def phase(name: str, msg: str) -> None:
-    print(f"[{name}] {msg}", flush=True)
+    """Print a phase's line, and keep it in OUT/phases.log (the kernels'
+    JSON line can outgrow the end of the output a caller keeps)."""
+    line = f"[{name}] {msg}"
+    print(line, flush=True)
+    with open(os.path.join(OUT, "phases.log"), "a") as fh:
+        fh.write(line + "\n")
 
 
 def require(cond: bool, what: str) -> None:
@@ -1816,6 +1843,401 @@ def pipeline_ends_phase(dev, card: str) -> dict:
                                    cli_s=cli_s))
 
 
+def run_groups(cmds, logs, env, timeout: float) -> list:
+    """Run each command in a process group of its own, all at once, its
+    output to its log; wait for all and return their exit codes.  Every
+    group still running at `timeout` seconds is killed and the wait
+    raises."""
+    procs, files = [], []
+    try:
+        for cmd, log in zip(cmds, logs):
+            files.append(open(log, "w"))
+            procs.append(subprocess.Popen(
+                cmd, cwd=ROOT, env=env, stdout=files[-1],
+                stderr=subprocess.STDOUT, start_new_session=True))
+        deadline = time.monotonic() + timeout
+        return [p.wait(timeout=max(deadline - time.monotonic(), 0.1))
+                for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+        for f in files:
+            f.close()
+
+
+def pngs_of(folder: str) -> dict:
+    return {f: open(os.path.join(folder, f), "rb").read()
+            for f in sorted(os.listdir(folder)) if f.endswith(".png")}
+
+
+def sharded_rank(jobs, out: str, times: str, device: str, reps: int) -> None:
+    """Phase 21's rank function: parallel.dryrun.render_jobs over `jobs`
+    (the counted frames), then for each fused job the rank's list launch,
+    ranks in turn (CUDA events, mean of `reps`, and its exact rays), and
+    on rank 0 the sharded call (host clock from a barrier to the image,
+    least of `reps`) and the gather alone.  Rank 0 saves {job name: [each
+    rank's times]} to `times`."""
+    import torch.distributed as dist
+
+    from dsrt_tpu_torch.parallel.dryrun import job_inputs, render_jobs
+    from dsrt_tpu_torch.parallel.render import (gather_frame, rank_shard,
+                                                render_frame_fused_sharded,
+                                                shard_pixels)
+    from dsrt_tpu_torch.render import fused_accum, tonemap_u8
+    render_jobs(jobs, out, device)
+    found, scenes = {}, {}
+    for job in (j for j in jobs if j.fused):
+        mesh, scene, cam = job_inputs(job, device, scenes)
+        cfg, spp = job.cfg, job.cfg.resolved_spp()
+        shard = rank_shard(cfg, mesh)
+        pix = shard_pixels(shard, mesh.device)
+
+        def launch():
+            return fused_accum(scene, cam, cfg, spp, 0, pix)
+
+        mine = {}
+        for r in range(dist.get_world_size()):
+            if r == mesh.rank:
+                mine.update(kernel_ms=event_ms(launch, reps),
+                            rays=int(launch()[1]))
+            dist.barrier()
+        walls = []
+        for _ in range(reps):
+            dist.barrier()
+            t0 = time.perf_counter()
+            render_frame_fused_sharded(scene, cam, cfg, mesh)
+            walls.append(time.perf_counter() - t0)
+        rows = tonemap_u8(launch()[0], cfg, spp)
+        torch.cuda.synchronize()
+        gathers = []
+        for _ in range(reps):
+            dist.barrier()
+            t0 = time.perf_counter()
+            gather_frame(mesh, cfg, shard, rows)
+            gathers.append(time.perf_counter() - t0)
+        mine.update(wall_s=min(walls), gather_s=min(gathers))
+        every = [None] * dist.get_world_size() if mesh.rank == 0 else None
+        dist.gather_object(mine, every, dst=0)
+        found[job.name] = every
+    if dist.get_rank() == 0:
+        torch.save(found, times)
+
+
+@contextlib.contextmanager
+def traversal_waves():
+    """Inside the block every plain walk on the card
+    (ops/trace.lane_traverse, the walk of `walk="plain"` frames) also
+    launches the traversal kernel on the same rays.  Yields, per query
+    ("closest", "any"), the calls, lanes, active lanes, mismatches
+    ((t, u, v, tri) of the closest hit, hit masks of the any-hit query;
+    tolerance none), max |d| of t, the summed CUDA-event times of the
+    plain walk and of the kernel's wrapper call, the plain walk's visits
+    and tests, and the summed bound of the calls (traverse.bound_ms from
+    those visits and tests), split by the resource that bounds each."""
+    from dsrt_tpu_torch.ops import trace
+    from dsrt_tpu_torch.ops import traverse as tv
+    orig = trace.lane_traverse
+    stats = {q: dict(calls=0, lanes=0, active=0, mismatches=0,
+                     max_abs_err=0.0, plain_ms=0.0, ms=0.0, visits=0,
+                     tests=0, bound_ms={"bytes": 0.0, "operations": 0.0})
+             for q in ("closest", "any")}
+
+    def walk(scene, ro, rd, t_min, t_max, active, any_hit=False):
+        st = stats["any" if any_hit else "closest"]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        torch.cuda.synchronize()
+        with trace.walk_counter() as wc:
+            ev[0].record()
+            want = orig(scene, ro, rd, t_min, t_max, active, any_hit=any_hit)
+            ev[1].record()
+        got = tv.traverse(scene, ro, rd, active, t_min, t_max,
+                          any_hit=any_hit)
+        ev[2].record()
+        torch.cuda.synchronize()
+        if any_hit:
+            mism = int(((got[3] >= 0) != (want[3] >= 0)).sum())
+        else:
+            mism = int(((got[0] != want[0]) | (got[1] != want[1])
+                        | (got[2] != want[2]) | (got[3] != want[3])).sum())
+            st["max_abs_err"] = max(st["max_abs_err"], float(
+                (got[0] - want[0]).abs().max()))
+        n_act = int(active.sum())
+        visits, tests = int(wc["visits"]), int(wc["tests"])
+        bound, by = tv.bound_ms(scene, active.numel(),
+                                tv.ray_bytes(ro, rd, n_act), visits, tests)
+        st["bound_ms"][by] += bound
+        for k, v in (("calls", 1), ("lanes", active.numel()),
+                     ("active", n_act), ("mismatches", mism),
+                     ("plain_ms", ev[0].elapsed_time(ev[1])),
+                     ("ms", ev[1].elapsed_time(ev[2])), ("visits", visits),
+                     ("tests", tests)):
+            st[k] += v
+        return want
+
+    trace.lane_traverse = walk
+    try:
+        yield stats
+    finally:
+        trace.lane_traverse = orig
+
+
+def traverse_frame_ms(fn, tries: int = 4) -> dict:
+    """{query: (kernel device ms in all, launches recorded)} of the
+    traversal kernels in one call of `fn`, from a device-only
+    torch.profiler session, taken again (up to `tries` sessions) when it
+    recorded no traversal kernel; raises after that."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dsrt_tpu_torch.ops import traverse as tv
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        out = {q: (0.0, 0) for q in tv.QUERIES}
+        for e in prof.key_averages():
+            # traverse_kernel<kind, wide>, kind = tv.QUERIES' index
+            m = re.search(r"traverse_kernel(?:<|ILi)(\d)", e.key)
+            if m and getattr(e, "self_device_time_total", 0):
+                ms, n = out[tv.QUERIES[int(m.group(1))]]
+                out[tv.QUERIES[int(m.group(1))]] = (
+                    ms + e.self_device_time_total / 1e3, n + e.count)
+        if any(n for _, n in out.values()):
+            return out
+    raise RuntimeError(f"torch.profiler recorded no traversal kernel in "
+                       f"{tries} sessions")
+
+
+def sharded_phase(dev, card: str, flagship, shard_work, poses: str,
+                  frames: str) -> dict:
+    """Phase 21: the sharded renders (dsrt_tpu_torch/parallel/).  (a) A
+    1-rank NCCL mesh in this process renders the flagship through
+    render_frame_fused_sharded.  (b) SHARD_DP ranks (spawned, sharing
+    cuda:0, so gloo; `sharded_rank`) render the flagship and rtiow
+    dp-sharded, each rank one list launch of its shard; each rank's list
+    launch is timed in turn (CUDA events) and bounded (the flagship from
+    phase 5's per-shard work, rtiow from the rank's exact rays), and rank
+    0 times the sharded call and the gather alone.  (c) The same ranks
+    render the flagship at sp = SHARD_DP through the traversal kernels;
+    this process renders the slice emulation through the plain walk on
+    the card, which launches the traversal kernel beside each plain walk
+    (`traversal_waves`): its queries are the ranks' queries, timed and
+    bounded at the frame's own waves.  (d) The driver under
+    torch.distributed.run with --shard, and with --hosts as independent
+    processes, over phase 6's poses and flags.  Each must equal its
+    single-process counterpart."""
+    from dsrt_tpu_torch.config import RenderConfig
+    from dsrt_tpu_torch.models import presets
+    from dsrt_tpu_torch.models.mesh_gen import (iss_standin_scene,
+                                                write_panel_texture)
+    from dsrt_tpu_torch.ops import path_kernel
+    from dsrt_tpu_torch.ops.camera import make_camera, point_camera_at
+    from dsrt_tpu_torch.ops.traverse import (MT_FLOPS, SLAB_FLOPS,
+                                             roofline_ms)
+    from dsrt_tpu_torch.parallel.dryrun import Job
+    from dsrt_tpu_torch.parallel.mesh import leave, make_mesh, spawn_ranks
+    from dsrt_tpu_torch.parallel.render import (render_frame_fused_sharded,
+                                                render_frame_sp_emulated)
+    from dsrt_tpu_torch.render import render_frame_fused
+
+    tex = os.path.join(OUT, "panel.png")
+    write_panel_texture(tex)
+    cfg = RenderConfig(width=800, height=450, spp=32, max_depth=50)
+    cam = point_camera_at(BENCH_CAM, vfov=cfg.vfov, width=800, height=450,
+                          device=dev)
+    single_s, _, (img, rays) = wall_time(
+        lambda: render_frame_fused(flagship, cam, cfg, with_count=True), 3)
+
+    # (a) one rank, its own card: NCCL
+    path_kernel.reset_launches()
+    mesh = make_mesh(sp=1, device=dev)
+    try:
+        img_a, rays_a = render_frame_fused_sharded(flagship, cam, cfg, mesh,
+                                                   with_count=True)
+        backend = mesh.backend
+    finally:
+        leave()
+    launches_a = path_kernel.LAUNCHES["dsrt_path_render"]
+    same_a = np.array_equal(img_a, img)
+    phase("21 sharded", f"{card}; (a) 1-rank mesh, backend {backend}: "
+                        f"flagship 800x450 spp32 u8 identical to "
+                        f"render_frame_fused {same_a}, rays {rays_a} vs "
+                        f"{rays} (tolerance: identical), path kernel "
+                        f"launches {launches_a}")
+    require(backend == "nccl" and same_a and rays_a == rays
+            and launches_a == 1, "1-rank sharded flagship")
+
+    # (b), (c) SHARD_DP ranks on this card
+    rt_cfg = RenderConfig(width=400, height=225, spp=64, max_depth=50)
+    rt_look = dict(lookfrom=(0.0, 0.6, 2.0), lookat=(0.0, 0.0, -1.0),
+                   vfov=50, width=400, height=225)
+    flag_scene = functools.partial(iss_standin_scene, detail=12,
+                                   tex_path=tex)
+    flag_cam = functools.partial(point_camera_at, BENCH_CAM, vfov=cfg.vfov,
+                                 width=800, height=450)
+    jobs = [Job("flagship", flag_scene, flag_cam, cfg, fused=True),
+            Job("rtiow", presets.rtiow_smoke_scene,
+                functools.partial(make_camera, **rt_look), rt_cfg,
+                fused=True),
+            Job("flagship sp", flag_scene, flag_cam, cfg, sp=SHARD_DP)]
+    out = os.path.join(OUT, "sharded_jobs.pt")
+    times = os.path.join(OUT, "sharded_times.pt")
+    t0 = time.perf_counter()
+    spawn_ranks(sharded_rank, SHARD_DP, jobs, out, times, dev.type,
+                SHARD_REPS, timeout=SHARD_TIMEOUT)
+    ranks_s = time.perf_counter() - t0
+    res = torch.load(out, weights_only=False)
+    timed = torch.load(times, weights_only=False)
+    rt_scene = presets.rtiow_smoke_scene(device=dev)
+    rt_cam = make_camera(**rt_look, device=dev)
+    rt_single_s, _, (rt_img, rt_rays) = wall_time(
+        lambda: render_frame_fused(rt_scene, rt_cam, rt_cfg,
+                                   with_count=True), 3)
+    summary = {"ranks_process_s": ranks_s,
+               "flagship 1 rank": dict(launches=launches_a, backend=backend)}
+    for name, kname, ref_img, ref_rays, single in (
+            ("flagship", "dsrt_path_render", img, rays, single_s),
+            ("rtiow", "dsrt_sphere_render", rt_img, rt_rays, rt_single_s)):
+        r = res[name]
+        same = np.array_equal(r["img"], ref_img)
+        per = []
+        for rk, tk in zip(r["ranks"], timed[name]):
+            if name == "flagship":
+                work = shard_work[rk["dp_index"]]
+                bound = roofline_ms(
+                    work["visits"] * SLAB_FLOPS + work["tests"] * MT_FLOPS,
+                    table_bytes(flagship, PATH_TABLES) + rk["pixels"] * 12)
+            else:
+                bound = roofline_ms(
+                    tk["rays"] * (SPHERE_FLOPS * rt_scene.n_spheres
+                                  + MEDIUM_FLOPS * rt_scene.n_media),
+                    table_bytes(rt_scene, ("mat_pack", "tex_pool"))
+                    + 247 * 4 + rk["pixels"] * 12)
+            per.append(dict(rk, **tk, bound_ms=bound[0], bound_by=bound[1]))
+        wall, gather = per[0]["wall_s"], per[0]["gather_s"]
+        phase("21 sharded",
+              f"{card}; (b) {name} {ref_img.shape[1]}x{ref_img.shape[0]} "
+              f"spp{(cfg if name == 'flagship' else rt_cfg).spp} at "
+              f"dp={SHARD_DP}, {SHARD_DP} ranks sharing {dev}: u8 "
+              f"identical to render_frame_fused {same}, rays {r['rays']} vs "
+              f"{ref_rays} (tolerance: identical); "
+              + "; ".join(f"rank {p['rank']}: {p['pixels']} pixels, "
+                          f"{p['launches'][kname]} {kname} launch, list "
+                          f"launch {p['kernel_ms']:.3f} ms (CUDA events, "
+                          f"mean of {SHARD_REPS}, ranks in turn), bound "
+                          f"{p['bound_ms']:.4f} ms by {p['bound_by']}, "
+                          f"{p['rays']} rays" for p in per)
+              + f"; sharded call {wall * 1e3:.3f} ms on rank 0 (least of "
+                f"{SHARD_REPS}) against render_frame_fused "
+                f"{single * 1e3:.3f} ms (least of 3); the gather alone "
+                f"{gather * 1e3:.3f} ms, {gather / wall:.1%} of the call")
+        require(same and r["rays"] == ref_rays
+                and all(p["launches"][kname] == 1 for p in per),
+                f"sharded {name} frame")
+        summary[name] = dict(ranks=per, wall_ms=wall * 1e3,
+                             single_ms=single * 1e3, gather_ms=gather * 1e3,
+                             launches=sum(p["launches"][kname] for p in per))
+
+    t0 = time.perf_counter()
+    with traversal_waves() as waves:
+        want = render_frame_sp_emulated(flagship, cam, cfg, sp=SHARD_DP,
+                                        walk="plain")
+    emu_s = time.perf_counter() - t0
+    # the kernels' device time at the same waves: the emulation through
+    # the traversal kernels, profiled
+    prof = traverse_frame_ms(lambda: render_frame_sp_emulated(
+        flagship, cam, cfg, sp=SHARD_DP))
+    r = res["flagship sp"]
+    same_c = np.array_equal(r["img"], want)
+    walks = ("dsrt_traverse", "dsrt_traverse any-hit", "dsrt_traverse_sun")
+    trav = {k: sum(rk["launches"][k] for rk in r["ranks"]) for k in walks}
+    lit = float((r["img"] > 0).mean())
+    for kname, query in (("dsrt_traverse", "closest"),
+                         ("dsrt_traverse any-hit", "any")):
+        w = waves[query]
+        w["bound_by"] = max(w["bound_ms"], key=w["bound_ms"].get)
+        w["bound_ms"] = sum(w["bound_ms"].values())
+        w["wrapper_ms"] = w.pop("ms")
+        w["kernel_ms"], w["kernel_launches"] = prof[query]
+        n = max(w["calls"], 1)
+        k_ms = w["kernel_ms"] / max(w["kernel_launches"], 1)
+        phase("21 sharded",
+              f"{card}; (c) {kname} at the flagship's sp={SHARD_DP} waves: "
+              f"{trav[kname]} launches on the ranks, {w['calls']} plain "
+              f"walks in the emulation, {w['lanes']} lanes, "
+              f"{w['active']} active; {w['mismatches']} mismatches "
+              f"({'hit masks' if query == 'any' else '(t,u,v,tri)'}; "
+              f"tolerance: none), max |d| t {w['max_abs_err']:.3g}; kernel "
+              f"{w['kernel_ms']:.3f} ms in all over {w['kernel_launches']} "
+              f"recorded launches, {k_ms:.4f} ms a launch (profiler device "
+              f"time); wrapper {w['wrapper_ms']:.1f} ms in all, "
+              f"{w['wrapper_ms'] / n:.4f} ms a call (CUDA events around "
+              f"each call on an idle stream, the wrapper's host work "
+              f"included); plain walk {w['plain_ms']:.1f} ms, "
+              f"{w['plain_ms'] / n:.2f} ms a call; bound {w['bound_ms']:.4f} "
+              f"ms in all, {w['bound_ms'] / n:.5f} ms a launch, by "
+              f"{w['bound_by']} ({w['visits']} visits, {w['tests']} tests)")
+        require(w["mismatches"] == 0 and w["calls"] == trav[kname] > 0
+                and w["kernel_launches"] > 0,
+                f"{kname} at the sharded flagship's waves")
+    phase("21 sharded", f"{card}; (c) flagship 800x450 spp32 depth50 at "
+                        f"sp={SHARD_DP}, {SHARD_DP} ranks sharing {dev}: "
+                        f"identical to render_frame_sp_emulated(sp="
+                        f"{SHARD_DP}, walk='plain') on the card {same_c} "
+                        f"(tolerance: identical; emulation {emu_s:.1f} s), "
+                        f"lit {lit:.2f}, launches on the ranks {trav}")
+    require(same_c and trav["dsrt_traverse"] > 0 and lit > 0.01,
+            "sample-sliced flagship frame")
+    summary["flagship sp"] = dict(launches=trav, emulation_s=emu_s,
+                                  waves=waves)
+
+    # (d) the driver: torch.distributed.run --shard, and --hosts as
+    # independent processes, over phase 6's poses and flags
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, (ROOT, os.environ.get("PYTHONPATH")))))
+    flags = ["--input_txt", poses, "--wipe", "--width", "320", "--height",
+             "180", "--spp", "16", "--standin_detail", "12",
+             "--standin_tex", tex, "--device", dev.type]
+    driver = [sys.executable, "-m", "dsrt_tpu_torch.driver"]
+    shard_dir = os.path.join(OUT, "frames_shard")
+    t0 = time.perf_counter()
+    rc_t, = run_groups(
+        [[sys.executable, "-m", "torch.distributed.run", "--standalone",
+          "--nproc_per_node", str(SHARD_DP), "-m", "dsrt_tpu_torch.driver",
+          "--output_dir", shard_dir, "--shard", *flags]],
+        [os.path.join(OUT, "driver_shard.log")], env, SHARD_TIMEOUT)
+    torchrun_s = time.perf_counter() - t0
+    host_dirs = [os.path.join(OUT, f"frames_host{i}") for i in range(2)]
+    t0 = time.perf_counter()
+    rc_h = run_groups(
+        [driver + ["--output_dir", d, "--hosts", "2", "--host_id", str(i),
+                   *flags] for i, d in enumerate(host_dirs)],
+        [os.path.join(OUT, f"driver_host{i}.log") for i in range(2)], env,
+        SHARD_TIMEOUT)
+    hosts_s = time.perf_counter() - t0
+    want_d = pngs_of(frames)
+    got_t = pngs_of(shard_dir) if rc_t == 0 else {}
+    got_h = [pngs_of(d) if rc == 0 else {} for d, rc in zip(host_dirs, rc_h)]
+    with open(os.path.join(OUT, "driver_shard.log")) as fh:
+        sharded_lines = fh.read().count("render (fused sharded over 1x2")
+    phase("21 sharded", f"(d) driver, phase 6's 2 poses 320x180 spp16: "
+                        f"torch.distributed.run --nproc_per_node {SHARD_DP} "
+                        f"--shard rc {rc_t} in {torchrun_s:.1f} s, PNGs "
+                        f"{sorted(got_t)} byte-identical to the unsharded "
+                        f"driver's {got_t == want_d}, fused sharded frames "
+                        f"{sharded_lines}; --hosts 2 as two processes rc "
+                        f"{rc_h} in {hosts_s:.1f} s, PNGs "
+                        f"{[sorted(g) for g in got_h]}, union identical "
+                        f"{dict(got_h[0], **got_h[1]) == want_d}")
+    require(rc_t == 0 and len(want_d) == 2 and got_t == want_d
+            and sharded_lines == 2, "torch.distributed.run --shard driver")
+    require(rc_h == [0, 0] and len(got_h[0]) == 1 and len(got_h[1]) == 1
+            and dict(got_h[0], **got_h[1]) == want_d, "--hosts driver")
+    summary["driver"] = dict(torchrun_s=torchrun_s, hosts_s=hosts_s)
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1830,12 +2252,14 @@ def main() -> int:
     from dsrt_tpu_torch.ops.traverse import LAUNCHES as traverse_launches
     from dsrt_tpu_torch.ops.traverse import (MT_FLOPS, SLAB_FLOPS,
                                              roofline_ms, traverse)
+    from dsrt_tpu_torch.parallel.render import packet_shard
     from dsrt_tpu_torch.render import (render_frame, render_frame_fused,
                                        tonemap)
     from dsrt_tpu_torch.tools.path_probe import random_rays
 
     dev = torch.device("cuda")
     os.makedirs(OUT, exist_ok=True)
+    open(os.path.join(OUT, "phases.log"), "w").close()
     t_start = time.perf_counter()
 
     # 1. the card
@@ -1965,14 +2389,26 @@ def main() -> int:
     acc_k32, n_k32 = path_kernel.path_render(scene, cam, cfg)
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
-    with walk_counter() as wc:
-        start.record()
-        acc_p32, n_p32 = path_kernel.path_render_plain(scene, cam, cfg, 32)
-        stop.record()
-        torch.cuda.synchronize()
-    p32 = start.elapsed_time(stop)
-    kernel_tables = ("wide_pack", "tri_pack", "tri_shade", "mat_pack",
-                     "tex_pool")
+    # the plain version runs as the pixel lists of phase 21's two dp
+    # shards, each under its own counter: the frame's work, and each
+    # rank's for its bound
+    acc_p32 = torch.empty_like(acc_k32)
+    n_p32, p32, shard_work = 0, 0.0, []
+    for d in range(SHARD_DP):
+        pix, live, _ = packet_shard(800, 450, SHARD_DP, d)
+        pix = torch.as_tensor(pix[live], device=dev)
+        with walk_counter() as wcd:
+            start.record()
+            acc_d, n_d = path_kernel.path_render_plain(scene, cam, cfg, 32,
+                                                       pixels=pix)
+            stop.record()
+            torch.cuda.synchronize()
+        p32 += start.elapsed_time(stop)
+        acc_p32.view(-1, 3)[pix] = acc_d
+        n_p32 += int(n_d)
+        shard_work.append({k: int(v) for k, v in wcd.items()})
+    wc = {k: sum(w[k] for w in shard_work) for k in shard_work[0]}
+    kernel_tables = PATH_TABLES
     bound, bound_by = roofline_ms(
         int(wc["visits"]) * SLAB_FLOPS + int(wc["tests"]) * MT_FLOPS,
         table_bytes(scene, kernel_tables) + acc_p32.numel() * 4)
@@ -1991,7 +2427,8 @@ def main() -> int:
         table_bytes(scene, kernel_tables) + acc_p1.numel() * 4)
     phase("5 times", f"800x450 spp32 depth50: kernel {k32:.3f} ms "
                      f"({int(n_k32) / k32 / 1e3:.1f} Mrays/s), plain "
-                     f"{p32:.1f} ms, accumulators identical on {same32:.4%} "
+                     f"{p32:.1f} ms (the {SHARD_DP} dp shards' lists), "
+                     f"accumulators identical on {same32:.4%} "
                      f"of pixels, max |d| {err32:.3g}, rays {int(n_k32)} vs "
                      f"{int(n_p32)} (tolerance: identical); bound "
                      f"{bound:.4f} ms by {bound_by} ({int(wc['visits'])} "
@@ -2086,13 +2523,37 @@ def main() -> int:
     with open(os.path.join(OUT, "pipeline_ends.json"), "w") as fh:
         json.dump(ends, fh, indent=1)
     phase("19-20", f"{time.perf_counter() - t0:.0f} s")
+    # 21: the sharded renders and the sharded driver
+    t0 = time.perf_counter()
+    sharded = sharded_phase(dev, card, scene, shard_work, poses, frames)
+    with open(os.path.join(OUT, "sharded.json"), "w") as fh:
+        json.dump(sharded, fh, indent=1)
+    phase("21", f"{time.perf_counter() - t0:.0f} s")
     # phase 3's launches are microbenchmark launches too; phases 5 and 14
     # (the megakernels' frames, --mode auto's path) required that no
-    # traversal kernel was launched
+    # traversal kernel was launched; the flagship's sharded sample slices
+    # (phase 21) are the main path through the traversal kernels, so the
+    # closest and any-hit entries give that frame's waves' time, plain
+    # time and bound (means a launch), the split waves' under split_waves
     kernels["dsrt_traverse"]["launches_microbenchmark"] += micro3
+    sliced = sharded["flagship sp"]["launches"]
     for walk_kernel in ("dsrt_traverse", "dsrt_traverse any-hit",
                         "dsrt_traverse_sun"):
-        kernels[walk_kernel]["launches_main_path"] = 0
+        kernels[walk_kernel]["launches_main_path"] = sliced[walk_kernel]
+    for walk_kernel, query in (("dsrt_traverse", "closest"),
+                               ("dsrt_traverse any-hit", "any")):
+        e, w = kernels[walk_kernel], sharded["flagship sp"]["waves"][query]
+        keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+                "shape")
+        e["split_waves"] = {k: e[k] for k in keys}
+        n = w["calls"]
+        e.update(ms=w["kernel_ms"] / w["kernel_launches"],
+                 wrapper_ms=w["wrapper_ms"] / n, plain_ms=w["plain_ms"] / n,
+                 bound_ms=w["bound_ms"] / n, bound_by=w["bound_by"],
+                 max_abs_err=w["max_abs_err"],
+                 shape=f"flagship 800x450 spp32 depth50 at sp={SHARD_DP}: "
+                       f"{n} launches of {w['lanes'] // n} lanes, "
+                       f"{w['active']} active in all (means a launch)")
     entry = kernels["dsrt_path_render"]
     entry["frames"] = mixed
     entry["launches_by_frame"] = dict(
@@ -2100,13 +2561,21 @@ def main() -> int:
         **{k: v["launches"] for k, v in mixed.items()},
         **{"adaptive flagship": adaptive["dsrt_path_render"]["launches"],
            "pipelined driver, 4 frames":
-               pipeline["runs"]["pipelined0"]["launches"]})
+               pipeline["runs"]["pipelined0"]["launches"],
+           "sharded flagship, 1-rank NCCL mesh":
+               sharded["flagship 1 rank"]["launches"],
+           f"sharded flagship, dp={SHARD_DP} ranks":
+               sharded["flagship"]["launches"]})
     entry["launches"] = sum(entry["launches_by_frame"].values())
     entry["pipeline"] = pipeline
+    entry["sharded"] = sharded["flagship"]
     sph = kernels["dsrt_sphere_render"]
     sph["launches_by_frame"]["adaptive rtiow"] = \
         adaptive["dsrt_sphere_render"]["launches"]
+    sph["launches_by_frame"][f"sharded rtiow, dp={SHARD_DP} ranks"] = \
+        sharded["rtiow"]["launches"]
     sph["launches"] = sum(sph["launches_by_frame"].values())
+    sph["sharded"] = sharded["rtiow"]
     for kname in ("dsrt_path_render", "dsrt_sphere_render"):
         kernels[kname]["list_launch"] = dict(check=lists[kname],
                                              adaptive=adaptive[kname])
@@ -2116,7 +2585,15 @@ def main() -> int:
         "debug frames": sum(debug[k]["launches"]
                             for k in ("solid", "gradient")),
         "radiance": debug["radiance"]["launches"]}
-    trav["launches"] = sum(trav["launches_by_path"].values())
+    for walk_kernel in ("dsrt_traverse any-hit", "dsrt_traverse_sun"):
+        kernels[walk_kernel]["launches_by_path"] = {
+            "split frames": kernels[walk_kernel]["launches"]}
+    for walk_kernel in ("dsrt_traverse", "dsrt_traverse any-hit",
+                        "dsrt_traverse_sun"):
+        e = kernels[walk_kernel]
+        e["launches_by_path"][f"sharded sp={SHARD_DP} ranks"] = \
+            sliced[walk_kernel]
+        e["launches"] = sum(e["launches_by_path"].values())
     trav["debug"] = debug
 
     require("jax" not in sys.modules, "jax was imported")
@@ -2124,7 +2601,10 @@ def main() -> int:
                  if m == "dsrt_tpu" or m.startswith("dsrt_tpu.")],
             "the JAX package was imported")
     phase("done", f"{time.perf_counter() - t_start:.0f} s")
-    print(json.dumps({"kernels": list(kernels.values())}))
+    line = json.dumps({"kernels": list(kernels.values())})
+    with open(os.path.join(OUT, "kernels.json"), "w") as fh:
+        fh.write(line + "\n")
+    print(line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -26,6 +26,19 @@ directory into `<output_dir>_upscaled` (scripts/upsample.py
 `process_folder`, x4, backend auto: the RRDBNet on cached weights, else
 bicubic) on the same device; a failed upscale fails the run.
 
+`--shard` makes the process one rank of a torch.distributed.run group
+(parallel/mesh.py: NCCL when every rank has a card of its own, gloo when
+ranks share one or run on the CPU): after `--debug_shade` and before
+`--adaptive` and `--mode`, each frame renders across an ("sp", "dp")
+mesh of every rank with `--shard_sp` sample slices
+(dsrt_tpu/driver.py:290-306): dp only on a scene a megakernel covers,
+`render_frame_fused_sharded` (each rank's pixel shard one list launch),
+else `render_frame_sharded` (the traversal kernels).  Sharded frames are
+not pipelined; rank 0 alone prints to stdout and writes the PNG, PPM and
+TSV, and runs `--upscale` after a barrier.  `--hosts N --host_id I`
+renders only frames i with i % N == I (independent processes, no
+collectives); it applies before any other frame filter.
+
 The JAX driver's TPU execution knobs (`--block_h`, `--pallas`, `--pops`,
 `--sun_pops`) are refused with an error: they set Pallas mechanism the
 port does not have (docs/MIGRATION.md).
@@ -39,7 +52,9 @@ Usage:
         [--mode auto|fused|parity|wavefront|queue] [--spp_batch 8] \
         [--adaptive 0.02 [--adaptive_chunk 4]] [--debug_shade \
          [--sky solid|gradient]] [--no_pipeline] [--dispatch_rays N] \
-        [--profile trace_dir] [--upscale]
+        [--profile trace_dir] [--upscale] [--hosts 2 --host_id 0]
+    python -m torch.distributed.run --standalone --nproc_per_node N \
+        -m dsrt_tpu_torch.driver --shard [--shard_sp S] ...
 
 `--device cuda` (the default) runs the CUDA kernels and fails when no
 CUDA device is present; `--device cpu` runs their plain PyTorch
@@ -49,6 +64,7 @@ versions.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 import time
@@ -119,7 +135,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="env map rotation about +y [deg]")
     p.add_argument("--env_scale", type=float, default=1.0,
                    help="env radiance multiplier")
+    p.add_argument("--shard", action="store_true",
+                   help="shard the render across all ranks (torch."
+                        "distributed.run; mesh ('sp','dp') + all-reduce; "
+                        "dp-only sharding is bit-identical to one process)")
+    p.add_argument("--shard_sp", type=int, default=1,
+                   help="sample-parallel axis size (must divide ranks & spp)")
     p.add_argument("--start_frame", type=int, default=0)
+    p.add_argument("--hosts", type=int, default=1,
+                   help="multi-host frame distribution: total host count "
+                        "(frames are independent, so hosts round-robin "
+                        "with no collectives)")
+    p.add_argument("--host_id", type=int, default=0,
+                   help="this host's index in [0, --hosts)")
     p.add_argument("--resume", action="store_true",
                    help="skip frames whose PNG already exists")
     p.add_argument("--wipe", action="store_true",
@@ -266,15 +294,35 @@ def build_scene(args, timer: StageTimer, device):
 
 def run(args, scene=None) -> int:
     """Render every pose of the pose file; `scene` (compiled on the
-    device of --device) replaces the scene the mesh flags describe."""
+    device of --device) replaces the scene the mesh flags describe.
+    With --shard the process is a rank of torch.distributed.run's group:
+    every rank builds the scene and renders its share of each frame, and
+    rank 0 alone prints to stdout and writes files."""
     device = resolve_device(args.device)
+    if not args.shard:
+        return _run(args, scene, device, None)
+    from dsrt_tpu_torch.parallel.mesh import leave, make_mesh
+    try:
+        mesh = make_mesh(sp=args.shard_sp, device=device)
+        if mesh.rank == 0:
+            return _run(args, scene, mesh.device, mesh)
+        with open(os.devnull, "w") as quiet, \
+                contextlib.redirect_stdout(quiet):
+            return _run(args, scene, mesh.device, mesh)
+    finally:
+        leave()
+
+
+def _run(args, scene, device, mesh) -> int:
+    lead = mesh is None or mesh.rank == 0
     timer = StageTimer()
-    os.makedirs(args.output_dir, exist_ok=True)
-    if args.wipe:
-        for f in os.listdir(args.output_dir):
-            fp = os.path.join(args.output_dir, f)
-            if os.path.isfile(fp):
-                os.unlink(fp)
+    if lead:
+        os.makedirs(args.output_dir, exist_ok=True)
+        if args.wipe:
+            for f in os.listdir(args.output_dir):
+                fp = os.path.join(args.output_dir, f)
+                if os.path.isfile(fp):
+                    os.unlink(fp)
 
     print(f"Using input_txt : {args.input_txt or '(none)'}")
     print(f"Using output_dir: {args.output_dir}")
@@ -303,8 +351,10 @@ def run(args, scene=None) -> int:
     rendered = 0
     pending = None   # the issued frame not yet encoded (pipeline)
     prof = None
-    profiled = not args.profile
+    profiled = not (args.profile and lead)
     for i, pose in enumerate(poses):
+        if args.hosts > 1 and i % args.hosts != args.host_id:
+            continue   # another host renders this frame
         if i < args.start_frame:
             continue
         png = os.path.join(args.output_dir, f"frame_{i:04d}.png")
@@ -329,6 +379,20 @@ def run(args, scene=None) -> int:
         if args.debug_shade:
             label = "debug"
             img, nrays = render_frame_debug(frame_scene, cam, cfg), None
+        elif mesh is not None:
+            from dsrt_tpu_torch.parallel.render import (
+                render_frame_fused_sharded, render_frame_sharded)
+            if args.shard_sp == 1 and fused_kind(frame_scene, cfg):
+                # dp only: every rank runs the megakernel on its pixel
+                # shard (bit-identical to one process)
+                label = "fused sharded"
+                img, nrays = render_frame_fused_sharded(
+                    frame_scene, cam, cfg, mesh, with_count=True)
+            else:
+                label = "sharded"
+                img = render_frame_sharded(frame_scene, cam, cfg, mesh)
+                nrays = None
+            label += f" over {mesh.sp}x{mesh.dp} ranks"
         elif args.adaptive > 0:
             label = "adaptive"
             img, stats = render_frame_adaptive(
@@ -368,7 +432,8 @@ def run(args, scene=None) -> int:
                 f", {mrays_per_sec(nrays, dt):.1f} Mrays/s, {nrays} rays "
                 "exact")
         print(f"  render ({label}): {dt*1e3:.0f} ms{rays}")
-        encode(png, img, timer, args)
+        if lead:
+            encode(png, img, timer, args)
         rendered += 1
     if pending is not None:
         finish_frame(pending, timer, args)
@@ -376,20 +441,28 @@ def run(args, scene=None) -> int:
 
     total = time.perf_counter() - total_start
     print(f"\nTotal runtime: {total:.1f} s ({rendered} frames)")
-    if args.timings_tsv:
+    if args.timings_tsv and lead:
         timer.write_tsv(args.timings_tsv)
 
-    if args.upscale:
+    if mesh is not None:
+        import torch.distributed as dist
+        dist.barrier()   # every rank is done with the card
+    if args.upscale and lead:
         from dsrt_tpu_torch.scripts.upsample import process_folder
         process_folder(args.output_dir, args.output_dir + "_upscaled",
                        scale=4, device=device)
-    else:
+    elif not args.upscale:
         print("Upscaling disabled (use --upscale to enable).")
     return 0
 
 
 def main(argv=None) -> int:
-    return run(build_parser().parse_args(argv))
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if not 0 <= args.host_id < args.hosts:
+        parser.error(f"--host_id {args.host_id} outside [0, --hosts "
+                     f"{args.hosts})")
+    return run(args)
 
 
 if __name__ == "__main__":

@@ -417,3 +417,37 @@ def render_samples(scene, cam, cfg, spp: int, salt: int = 0,
     if listed:
         return sums, nrays
     return sums.reshape(cfg.height, cfg.width, 3), nrays
+
+
+def stratified_sums(scene, cam, cfg, px, py, state, strata,
+                    walk: str = "plain"):
+    """The sample body of JAX's sharded render
+    (dsrt_tpu/parallel/render.py:82-96) over the pixels (px, py), 1-D
+    int64 tensors, from the LCG states `state`: one sample a lane for
+    each entry of `strata`, the samples' global stratum (ints).  Per
+    sample the jitter pair (stratum + u) / cfg's spp, the lens draws with
+    an aperture, and the path, with no shutter-time draw: that body has
+    none, so on a motion-blur scene its image is not the parity
+    renderer's.  Returns the (n, 3) sums of clamp01(L) and the exact ray
+    count (int64 tensor)."""
+    dev = scene.device
+    cam = cam.to(dev)
+    valid = torch.ones(px.shape, dtype=torch.bool, device=dev)
+    zero = torch.zeros(px.shape, dtype=torch.float32, device=dev)
+    acc = V3(zero, zero, zero)
+    nrays = torch.zeros((), dtype=torch.int64, device=dev)
+    spp_t = const(cfg.resolved_spp(), dev)
+    sdir = sun_direction(scene)
+    for s in strata:
+        jxu, state = rngmod.draw(state, valid)
+        jyu, state = rngmod.draw(state, valid)
+        sf = const(s, dev)
+        jx = (sf + jxu) / spp_t
+        jy = (sf + jyu) / spp_t
+        ro, rd, state = camera_rays(cam, px, py, jx, jy, state, valid,
+                                    cfg.aperture > 0)
+        L, state, nr = trace_paths(scene, cfg, ro, rd, state, valid, None,
+                                   walk, sdir)
+        acc = acc + L
+        nrays = nrays + nr
+    return torch.stack(list(acc), dim=-1), nrays

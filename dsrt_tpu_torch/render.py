@@ -31,8 +31,9 @@ set of active pixels through the megakernels' pixel-list launch
 (`fused_accum`); its sums, convergence test and tonemap run in float64
 numpy on the host in JAX's order of operations.
 
-Tonemap: average, clamp negatives, firefly clamp 10, pow(c, 1/gamma),
-clamp01, u8 with the 255.99 scale, vertical flip (row 0 = top).
+Tonemap (`tonemap_u8`): average, clamp negatives, firefly clamp 10,
+pow(c, 1/gamma), clamp01, u8 with the 255.99 scale; then the vertical
+flip (row 0 = top).
 """
 
 from __future__ import annotations
@@ -90,10 +91,10 @@ def lanes_to_image(vals: torch.Tensor, ty: int, tx: int) -> torch.Tensor:
             .transpose(1, 2).reshape((ty * TILE_H, tx * TILE_W) + rest))
 
 
-def tonemap_device(accum: torch.Tensor, cfg: RenderConfig,
-                   spp: int) -> torch.Tensor:
-    """(height, width, 3) sums of clamp01(L) over `spp` samples -> u8
-    image tensor on the sums' device, row 0 = top.  Inside
+def tonemap_u8(accum: torch.Tensor, cfg: RenderConfig,
+               spp: int) -> torch.Tensor:
+    """(..., 3) sums of clamp01(L) over `spp` samples -> u8 tensor of the
+    same shape on the sums' device, unflipped.  Inside
     utils.debug.debug_nans a non-finite sum raises FloatingPointError."""
     check_accumulator(accum)
     inv_spp = float(np.float32(1.0 / spp))
@@ -103,8 +104,15 @@ def tonemap_device(accum: torch.Tensor, cfg: RenderConfig,
     c = torch.clamp_max(c, float(cfg.firefly_clamp))
     c = f64_op(torch.pow, c, inv_gamma)
     c = torch.clamp(c, 0.0, 1.0)
-    img = (255.99 * c).to(torch.uint8)
-    return torch.flip(img, dims=[0])
+    return (255.99 * c).to(torch.uint8)
+
+
+def tonemap_device(accum: torch.Tensor, cfg: RenderConfig,
+                   spp: int) -> torch.Tensor:
+    """(height, width, 3) sums of clamp01(L) over `spp` samples -> u8
+    image tensor on the sums' device, row 0 = top (tonemap_u8, then the
+    vertical flip)."""
+    return torch.flip(tonemap_u8(accum, cfg, spp), dims=[0])
 
 
 def tonemap(accum: torch.Tensor, cfg: RenderConfig, spp: int) -> np.ndarray:

@@ -77,9 +77,8 @@ def test_driver_resume_and_ppm(tmp_path):
     assert png.stat().st_mtime_ns == mtime
 
 
-@pytest.mark.parametrize("flag", ["--mode", "--shard", "--shard_sp",
-                                  "--hosts", "--host_id", "--block_h",
-                                  "--pallas", "--pops", "--sun_pops"])
+@pytest.mark.parametrize("flag", ["--mode", "--block_h", "--pallas", "--pops",
+                                  "--sun_pops"])
 def test_driver_refuses_unported_flags(flag):
     with pytest.raises(SystemExit):
         driver.build_parser().parse_args([flag, "1"])

@@ -71,6 +71,7 @@ def test_render_in_subprocess_leaves_jax_unimported():
         "from dsrt_tpu_torch.orbit import trajectory\n"
         "E = kepler.solve_kepler_E_torch([0.5, 1.0], 0.2, device='cpu')\n"
         "assert str(E.dtype) == 'torch.float64'\n"
+        "from dsrt_tpu_torch.parallel import dryrun, mesh, render\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('dsrt_tpu', 'jax', 'jaxlib', 'bench')]\n"
