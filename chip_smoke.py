@@ -66,7 +66,21 @@ the traversal kernels against the single-process slice emulation
 through the plain walk, with the kernels timed, bounded and held
 against the plain walk at that frame's own waves; the driver under
 torch.distributed.run with --shard and as two --hosts processes against
-phase 6's PNGs.
+phase 6's PNGs.  Then the rendezvous sequence of docs/RUN_RENDEZVOUS.md
+(phase 22): the orbit CLI on the card writes its 99 poses (--time 1 --dt
+0.01, 1787 m to 36 m from the station); the driver renders all of them
+as Run A (the textured detail-12 stand-in, 800x450, 250 spp, --mode
+auto: one path kernel launch a frame) and poses 0, 49 and 98 as Run B
+(1920x1080, 1000 spp: eight salted chunk launches a frame, each frame
+u8- and ray-identical to render_accum_fused on the driver's scene,
+camera and sun), with the per-frame render stage, rays and Mrays/s of
+both (tools/sequence_stats.py); one salted chunk launch of each Run B
+frame and Run A's launch at pose 49 equal the plain version (on CPU
+copies) at their own shapes over a list of their lit pixels and
+uniformly drawn ones; the frames against the JAX package's frames of the same runs over
+their lit pixels; at poses 49 and 98 (160x90, 4 spp) render_frame_fused
+equals the path kernel's plain version on the card, whose counted work
+bounds the kernel at the sequence's frames.
 Each phase prints its lines; any failure raises, so the exit code is
 nonzero.  The last two lines are the kernels' JSON summary and
 {"ok": true, "device": {...}}.  Needs one CUDA device; imports no JAX and
@@ -146,6 +160,44 @@ PATH_TABLES = ("wide_pack", "tri_pack", "tri_shade", "mat_pack", "tex_pool")
 SHARD_DP = 2
 SHARD_REPS = 5
 SHARD_TIMEOUT = 600
+# the rendezvous phase (docs/RUN_RENDEZVOUS.md): the orbit CLI's span and
+# step [s] and its pose count; Run A's and Run B's frames (width, height,
+# spp), Run B on the doc's sample poses; the path kernel against its
+# plain version at two of the sequence's poses (width, height, spp)
+RDV_SPAN = ("1", "0.01")
+RDV_POSES = 99
+RDV_RUN_A = (800, 450, 250)
+RDV_RUN_B = (1920, 1080, 1000)
+RDV_SAMPLES = (0, 49, 98)
+RDV_CHECK = (160, 90, 4)
+RDV_CHECK_POSES = (49, 98)
+RDV_TEX = os.path.join(ROOT, "misc", "iss_standin.png")
+# the launches held against the plain version at their own shapes: for
+# each Run B sample pose the chunk (its index in the frame's schedule:
+# 129 spp under a nonzero salt, the last one 97 spp), and Run A's launch
+# at one pose; the pixels listed for the plain version (at most this
+# many of the launch's lit pixels, this many drawn uniformly) and the
+# seed of the draw
+RDV_CHUNKS = (1, 4, 7)
+RDV_A_POSE = 49
+RDV_PIXELS = (768, 256)
+RDV_PIXEL_SEED = 22
+# the JAX package's frames of the same runs (docs/RUN_RENDEZVOUS.md):
+# Run A's and Run B's PNG of each pose, compared over the pixels lit in
+# either frame: the lit counts within RDV_LIT_COUNT of each other and the
+# mean signed difference within RDV_BIAS_U8 (the JAX frames come from
+# the TPU, whose float operations send some samples of a far pose's
+# sub-pixel geometry down other paths); where at least RDV_FULL of the
+# frame is lit, also >= 99% of those pixels identical and mean |d| <=
+# 0.5 u8
+RDV_REFERENCE = {("A", 0): "rendezvous250_frame_0000.png",
+                 ("A", 98): "rendezvous250_frame_0098.png",
+                 ("B", 0): "rendezvous1080_frame_0000.png",
+                 ("B", 49): "rendezvous1080_frame_0049.png",
+                 ("B", 98): "rendezvous1080_frame_0098.png"}
+RDV_LIT_COUNT = 0.1
+RDV_BIAS_U8 = 1.0
+RDV_FULL = 0.01
 
 
 def phase(name: str, msg: str) -> None:
@@ -529,6 +581,20 @@ def frame_compare(img_k, img_c):
     """(share of identical u8 pixels, mean |d|) of two frames."""
     d = np.abs(img_k.astype(int) - img_c.astype(int))
     return float((d.max(-1) == 0).mean()), float(d.mean())
+
+
+def lit_compare(img_k, img_c) -> dict:
+    """Two frames over the pixels lit in either: the frame's share of
+    them, each frame's lit count, the share of them identical, and their
+    mean |d| and mean signed difference (k - c) in u8."""
+    lit = (img_k.max(-1) > 0) | (img_c.max(-1) > 0)
+    d = img_k[lit].astype(int) - img_c[lit].astype(int)
+    return dict(lit_share=float(lit.mean()),
+                lit=[int((img_k.max(-1) > 0).sum()),
+                     int((img_c.max(-1) > 0).sum())],
+                identical=float((np.abs(d).max(-1) == 0).mean()),
+                mean_abs_u8=float(np.abs(d).mean()),
+                mean_signed_u8=float(d.mean()))
 
 
 def count_syncs(fn) -> int:
@@ -2238,6 +2304,369 @@ def sharded_phase(dev, card: str, flagship, shard_work, poses: str,
     return summary
 
 
+def rendezvous_args(poses: str, out_dir: str, size) -> list:
+    """The driver's arguments of docs/RUN_RENDEZVOUS.md's runs: the
+    textured detail-12 stand-in, --mode auto, at `size` (width, height,
+    spp)."""
+    w, h, spp = size
+    return ["--input_txt", poses, "--output_dir", out_dir,
+            "--standin_detail", "12", "--standin_tex", RDV_TEX, "--width",
+            str(w), "--height", str(h), "--spp", str(spp), "--mode", "auto"]
+
+
+def rendezvous_drive(tag: str, poses: str, size) -> dict:
+    """The driver over a pose file with rendezvous_args, --timings_tsv and
+    --wipe, its stdout to OUT/rendezvous/<tag>.log: its exit code and
+    wall, the PNGs, the kernels' launches in the run (counts set to 0
+    just before), how often the path kernel's wrapper made the scene's
+    parameter records and a sun vector, and tools/sequence_stats of the
+    run."""
+    from dsrt_tpu_torch import driver
+    from dsrt_tpu_torch.ops import path_kernel, sphere_kernel
+    from dsrt_tpu_torch.ops import traverse as tv
+    from dsrt_tpu_torch.tools.sequence_stats import sequence_stats
+    out = os.path.join(OUT, "rendezvous")
+    out_dir, log = os.path.join(out, tag), os.path.join(out, f"{tag}.log")
+    tsv = os.path.join(out, f"{tag}.tsv")
+    made = {"path_params": 0, "sun": 0}
+    cached = path_kernel._cached
+
+    def counting(scene, key, sources, make):
+        def counted():
+            made[key.split()[0]] += 1
+            return make()
+        return cached(scene, key, sources, counted)
+
+    path_kernel.reset_launches()
+    sphere_kernel.reset_launches()
+    tv.reset_launches()
+    path_kernel._cached = counting
+    try:
+        with open(log, "w") as fh, contextlib.redirect_stdout(fh):
+            t0 = time.perf_counter()
+            rc = driver.main(rendezvous_args(poses, out_dir, size)
+                             + ["--timings_tsv", tsv, "--wipe"])
+            wall = time.perf_counter() - t0
+    finally:
+        path_kernel._cached = cached
+    launches = dict(path_kernel.LAUNCHES, **sphere_kernel.LAUNCHES,
+                    **tv.LAUNCHES)
+    with open(log) as fh:
+        stats = sequence_stats(fh.read(), tsv)
+    return dict(rc=rc, wall_s=wall, out_dir=out_dir, launches=launches,
+                made=made, pngs=sorted(f for f in os.listdir(out_dir)
+                                       if f.endswith(".png")), **stats)
+
+
+def held_at_pixels(scene, cam, cfg, spp: int, salt: int, acc) -> dict:
+    """One frame launch of the path kernel at its own shape (`acc`, its
+    (H, W, 3) accumulator of `spp` samples under the salt `salt`) against
+    the plain version at a pixel list: up to RDV_PIXELS[0] of the launch's
+    lit pixels and RDV_PIXELS[1] drawn uniformly.  The launch's rows
+    there, the kernel's list launch at the same pixels and the plain
+    version's rows must be equal, and the list launch's ray count the
+    plain version's.  The plain version runs on CPU copies of the scene
+    and camera (bit-identical to the card's, as phase 13 holds it): its
+    samples run one after another, each waiting on its walk's steps, and
+    on the host a step waits on no device."""
+    from dsrt_tpu_torch.ops import path_kernel
+    flat = acc.reshape(-1, 3)
+    lit = torch.nonzero(flat.amax(-1) > 0).flatten().cpu().numpy()
+    rng = np.random.default_rng(RDV_PIXEL_SEED)
+    n_lit, n_uniform = RDV_PIXELS
+    picked = (lit if len(lit) <= n_lit
+              else rng.choice(lit, n_lit, replace=False))
+    drawn = rng.choice(flat.shape[0], n_uniform, replace=False)
+    pix = torch.as_tensor(np.unique(np.concatenate([picked, drawn])))
+    rows_l, n_l = path_kernel.path_render(scene, cam, cfg, spp, salt=salt,
+                                          pixels=pix.to(acc.device))
+    t0 = time.perf_counter()
+    rows_p, n_p = path_kernel.path_render_plain(
+        scene.to("cpu"), cam.to("cpu"), cfg, spp, salt=salt, pixels=pix)
+    plain_s = time.perf_counter() - t0
+    same = (torch.equal(flat[pix.to(acc.device)].cpu(), rows_p)
+            and torch.equal(rows_l.cpu(), rows_p) and int(n_l) == int(n_p))
+    return dict(identical=same, spp=spp, salt=salt, pixels=int(pix.numel()),
+                lit_in_launch=int(len(lit)), lit_listed=int(len(picked)),
+                rays=int(n_p), plain_cpu_s=plain_s)
+
+
+def rendezvous_phase(dev, card: str) -> dict:
+    """Phase 22: docs/RUN_RENDEZVOUS.md's sequence through the port's
+    entry points on the card.  The orbit CLI writes its 99 poses (--time
+    1 --dt 0.01); the driver renders all of them as Run A (800x450, 250
+    spp, one path kernel launch a frame) and poses 0, 49 and 98 as Run B
+    (1920x1080, 1000 spp: 8 salted chunk launches a frame); each Run B
+    frame is rendered again through render_accum_fused on the driver's
+    scene, camera and sun, with each chunk launch timed, and must be
+    u8-identical to the driver's PNG with the same ray count.  One chunk
+    launch of each Run B frame (RDV_CHUNKS) and Run A's launch at pose
+    RDV_A_POSE are held against the plain version on the card at their
+    own shapes, spp and salts (held_at_pixels).  The frames are compared
+    with the JAX package's frames of the same runs over their lit pixels
+    (lit_compare).  At poses 49 and 98 (160x90, 4 spp, depth 50)
+    render_frame_fused must equal the path kernel's plain version on the
+    card in every pixel and ray count; the plain version's node visits and
+    triangle tests, scaled to Run A's and Run B's frames, give the
+    kernel's bound at those poses."""
+    from dsrt_tpu_torch import driver
+    from dsrt_tpu_torch.ops import path_kernel
+    from dsrt_tpu_torch.ops.trace import walk_counter
+    from dsrt_tpu_torch.ops.traverse import (MT_FLOPS, SLAB_FLOPS,
+                                             roofline_ms)
+    from dsrt_tpu_torch.orbit import cli as orbit_cli
+    from dsrt_tpu_torch.render import (fused_chunk_spp, render_accum_fused,
+                                       render_frame_fused, tonemap)
+    from dsrt_tpu_torch.utils.image_io import read_png
+    from dsrt_tpu_torch.utils.pose import read_pose_file
+    from dsrt_tpu_torch.utils.timing import StageTimer
+    from dsrt_tpu_torch.utils.transform import pose_to_frame
+    out = os.path.join(OUT, "rendezvous")
+    os.makedirs(out, exist_ok=True)
+
+    # 1. the poses, from the orbit CLI on the card
+    poses99 = os.path.join(out, "poses99.txt")
+    t0 = time.perf_counter()
+    rc = orbit_cli.main(["--time", RDV_SPAN[0], "--dt", RDV_SPAN[1],
+                         "--txt", poses99])
+    cli_s = time.perf_counter() - t0
+    frames = [pose_to_frame(p) for p in read_pose_file(poses99)]
+    n = len(frames)
+    require(rc == 0 and n == RDV_POSES and None not in frames,
+            f"orbit CLI: rc {rc}, {n} poses (want {RDV_POSES})")
+    sep = [f.separation_m for f in frames]
+    phase("22 rendezvous",
+          f"{card}; orbit CLI --time {RDV_SPAN[0]} --dt {RDV_SPAN[1]} on "
+          f"the card: {n} poses in {cli_s:.2f} s; camera-model separation "
+          + ", ".join(f"pose {i} {sep[i]:.1f} m" for i in RDV_SAMPLES))
+
+    def summary(run):
+        r = run["render_s"]
+        return (f"rc {run['rc']}, {len(run['pngs'])} PNGs, labels "
+                f"{sorted({f['label'] for f in run['frames']})}; driver "
+                f"call {run['wall_s']:.1f} s (scene compile "
+                f"{run['scene_compile_s']:.1f} s, frame loop "
+                f"{run['loop_wall_s']} s); render stage median "
+                f"{r['median']:.4f}, p10 {r['p10']:.4f}, p90 "
+                f"{r['p90']:.4f}, min {r['min']:.4f}, max {r['max']:.4f} s "
+                f"(sum {r['sum']:.2f}); encode {run['encode_s']:.2f} s in "
+                f"all; {run['rays']} exact rays, "
+                f"{run['sustained_mrays_per_s']:.1f} Mrays/s over the frame "
+                f"loop; slowest frame {run['slowest']['index']} at "
+                f"{run['slowest']['separation_m']:.1f} m, "
+                f"{run['slowest']['render_s']:.4f} s; launches "
+                f"{run['launches']}; parameter records made "
+                f"{run['made']['path_params']} times, sun vector "
+                f"{run['made']['sun']} times")
+
+    def require_run(run, tag, frames_n, launches_n):
+        labels = {f["label"] for f in run["frames"]}
+        require(run["rc"] == 0 and len(run["pngs"]) == frames_n
+                and len(run["frames"]) == frames_n
+                and labels == {f"fused on {dev.type}"},
+                f"{tag}: rc {run['rc']}, {len(run['pngs'])} PNGs, labels "
+                f"{labels}")
+        require(run["launches"]["dsrt_path_render"] == launches_n
+                and run["launches"]["dsrt_sphere_render"] == 0
+                and run["launches"]["dsrt_traverse"] == 0
+                and run["launches"]["dsrt_traverse_sun"] == 0,
+                f"{tag}: launches {run['launches']}, want "
+                f"{launches_n} of the path kernel and no other")
+
+    # 2. Run A: every pose
+    w, h, spp = RDV_RUN_A
+    run_a = rendezvous_drive("rdv250", poses99, RDV_RUN_A)
+    phase("22 rendezvous", f"Run A {w}x{h} spp{spp} depth50, {n} poses: "
+                           + summary(run_a))
+    phase("22 rendezvous frames",
+          "Run A (index, separation m, render s, Mrays/s, exact rays): "
+          + "; ".join(f"{f['index']} {f['separation_m']:.1f} "
+                      f"{f['render_s']:.4f} {f['mrays_per_s']:.1f} "
+                      f"{f['rays']}" for f in run_a["frames"]))
+    require_run(run_a, "Run A", n, n)
+
+    # 3. Run B: the sample poses at 1920x1080, 1000 spp
+    poses3 = os.path.join(out, "poses3.txt")
+    with open(poses99) as fh:
+        lines = [ln for ln in fh if ln.strip() and not ln.startswith("#")]
+    with open(poses3, "w") as fh:
+        fh.writelines(lines[i] for i in RDV_SAMPLES)
+    w, h, spp = RDV_RUN_B
+    run_b = rendezvous_drive("rdv1080", poses3, RDV_RUN_B)
+    args = driver.build_parser().parse_args(
+        rendezvous_args(poses3, run_b["out_dir"], RDV_RUN_B))
+    cfg = driver.render_config(args)
+    chunk = fused_chunk_spp(cfg)
+    n_chunks = -(-spp // chunk)
+    phase("22 rendezvous", f"Run B {w}x{h} spp{spp} depth50, poses "
+                           f"{list(RDV_SAMPLES)}, chunks of {chunk} spp: "
+                           + summary(run_b))
+    require_run(run_b, "Run B", len(RDV_SAMPLES),
+                len(RDV_SAMPLES) * n_chunks)
+    with contextlib.redirect_stdout(sys.stderr):
+        scene = driver.build_scene(args, StageTimer(), dev)
+    launch = path_kernel.path_render
+    replays, held = [], {}
+    for k, (i, logged) in enumerate(zip(RDV_SAMPLES, run_b["frames"])):
+        s, cam = driver.frame_inputs(args, scene, frames[i], dev)
+        events, kept = [], {}
+
+        def timed(*a, **kw):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            res = launch(*a, **kw)
+            ev[1].record()
+            if len(events) == RDV_CHUNKS[k]:
+                kept.update(spp=a[3], salt=kw["salt"], acc=res[0])
+            events.append(ev)
+            return res
+
+        path_kernel.path_render = timed
+        try:
+            t0 = time.perf_counter()
+            acc, rays = render_accum_fused(s, cam, cfg)
+            img = tonemap(acc, cfg, spp)
+            secs = time.perf_counter() - t0
+        finally:
+            path_kernel.path_render = launch
+        chunk_ms = [a.elapsed_time(b) for a, b in events]
+        png = read_png(os.path.join(run_b["out_dir"], f"frame_{k:04d}.png"))
+        same = bool(np.array_equal(img, png)) and int(rays) == logged["rays"]
+        lit = float((png.max(-1) > 0).mean())
+        replays.append(dict(pose=i, separation_m=sep[i], identical=same,
+                            lit=lit, rays=int(rays), seconds=secs,
+                            chunk_ms=chunk_ms,
+                            mrays_per_s=int(rays) / secs / 1e6,
+                            driver_render_s=logged["render_s"]))
+        phase("22 rendezvous",
+              f"Run B pose {i} ({sep[i]:.1f} m): driver render stage "
+              f"{logged['render_s']:.3f} s, {logged['rays']} exact rays, "
+              f"{logged['mrays_per_s']:.1f} Mrays/s; render_accum_fused "
+              f"on the driver's scene, camera and sun: {secs:.3f} s, "
+              f"{int(rays) / secs / 1e6:.1f} Mrays/s, {len(chunk_ms)} "
+              f"launches of ms "
+              f"{', '.join(f'{t:.1f}' for t in chunk_ms)}; u8 and rays "
+              f"identical to the driver's {same} (tolerance: identical); "
+              f"{lit:.4%} of pixels lit")
+        require(same and len(chunk_ms) == n_chunks,
+                f"Run B pose {i}: the driver's frame differs from "
+                f"render_accum_fused, or {len(chunk_ms)} launches")
+        held[f"run B pose {i} chunk {RDV_CHUNKS[k]}"] = held_at_pixels(
+            s, cam, cfg, kept["spp"], kept["salt"], kept["acc"])
+        del kept["acc"], acc
+
+    # Run A's launch at one pose, which made the driver's frame
+    args_a = driver.build_parser().parse_args(
+        rendezvous_args(poses99, run_a["out_dir"], RDV_RUN_A))
+    cfg_a = driver.render_config(args_a)
+    s, cam = driver.frame_inputs(args_a, scene, frames[RDV_A_POSE], dev)
+    acc, _ = path_kernel.path_render(s, cam, cfg_a)
+    png = read_png(os.path.join(run_a["out_dir"],
+                                f"frame_{RDV_A_POSE:04d}.png"))
+    require(np.array_equal(tonemap(acc, cfg_a, cfg_a.spp), png),
+            f"Run A pose {RDV_A_POSE}: the launch differs from the "
+            "driver's frame")
+    held[f"run A pose {RDV_A_POSE}"] = held_at_pixels(s, cam, cfg_a,
+                                                      cfg_a.spp, 0, acc)
+    del acc
+    for key, v in held.items():
+        phase("22 rendezvous held",
+              f"{key}: the frame launch ({v['spp']} spp, salt "
+              f"{v['salt']:#x}) against the plain version at "
+              f"{v['pixels']} pixels ({v['lit_listed']} of its "
+              f"{v['lit_in_launch']} lit pixels, the rest drawn "
+              f"uniformly): rows, the list launch's rows and its ray count "
+              f"identical {v['identical']} (tolerance: identical), "
+              f"{v['rays']} rays; plain on the host {v['plain_cpu_s']:.1f} s")
+        require(v["identical"], f"{key}: the path kernel and its plain "
+                                "version differ")
+
+    # the frames against the JAX package's frames of the same runs
+    reference = {}
+    for (run, i), name in RDV_REFERENCE.items():
+        png = (os.path.join(run_a["out_dir"], f"frame_{i:04d}.png")
+               if run == "A" else os.path.join(
+                   run_b["out_dir"],
+                   f"frame_{RDV_SAMPLES.index(i):04d}.png"))
+        reference[f"run {run} pose {i}"] = lit_compare(
+            read_png(png), read_png(os.path.join(ROOT, "misc", name)))
+    phase("22 rendezvous",
+          "against the JAX package's frames of the same runs (misc/), over "
+          "the pixels lit in either: "
+          + "; ".join(f"{k} {v['lit_share']:.4%} of the frame, lit "
+                      f"{v['lit'][0]} / {v['lit'][1]}, "
+                      f"{v['identical']:.4%} identical, mean |d| "
+                      f"{v['mean_abs_u8']:.4f}, signed "
+                      f"{v['mean_signed_u8']:+.4f} u8"
+                      for k, v in reference.items())
+          + f" (tolerance: lit counts within {RDV_LIT_COUNT:.0%}, signed "
+            f"mean within {RDV_BIAS_U8} u8; at >= {RDV_FULL:.0%} lit also "
+            ">= 99% identical and mean |d| <= 0.5 u8)")
+    for k, v in reference.items():
+        lo, hi = sorted(v["lit"])
+        require(lo > 0 and hi <= lo * (1 + RDV_LIT_COUNT)
+                and abs(v["mean_signed_u8"]) <= RDV_BIAS_U8
+                and (v["lit_share"] < RDV_FULL
+                     or (v["identical"] >= 0.99
+                         and v["mean_abs_u8"] <= 0.5)),
+                f"{k}: the frame differs from the JAX package's")
+
+    # 4. the kernel against its plain version at two of the poses
+    cw, ch, cspp = RDV_CHECK
+    args_c = driver.build_parser().parse_args(
+        rendezvous_args(poses3, run_b["out_dir"], RDV_CHECK))
+    ccfg = driver.render_config(args_c)
+    checks = {}
+    for i in RDV_CHECK_POSES:
+        s, cam = driver.frame_inputs(args_c, scene, frames[i], dev)
+        img_f, n_f = render_frame_fused(s, cam, ccfg, with_count=True)
+        acc_k, n_k = path_kernel.path_render(s, cam, ccfg)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        with walk_counter() as wc:
+            start.record()
+            acc_p, n_p = path_kernel.path_render_plain(s, cam, ccfg, cspp)
+            stop.record()
+            torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(stop)
+        same = (torch.equal(acc_k, acc_p) and int(n_k) == int(n_p) == n_f
+                and bool(np.array_equal(img_f, tonemap(acc_p, ccfg, cspp))))
+        work = {k: int(v) for k, v in wc.items()}
+        bounds = {}
+        for tag, (fw, fh, fspp) in (("run_a", RDV_RUN_A), ("run_b",
+                                                            RDV_RUN_B)):
+            scale = fw * fh * fspp / (cw * ch * cspp)
+            bounds[tag] = roofline_ms(
+                scale * (work["visits"] * SLAB_FLOPS
+                         + work["tests"] * MT_FLOPS),
+                table_bytes(scene, PATH_TABLES) + fw * fh * 3 * 4)
+        checks[i] = dict(identical=same, rays=int(n_p), plain_ms=plain_ms,
+                         work=work, lit=float((img_f > 0).mean()),
+                         bound_ms={k: v[0] for k, v in bounds.items()},
+                         bound_by={k: v[1] for k, v in bounds.items()})
+        phase("22 rendezvous check",
+              f"pose {i} ({sep[i]:.1f} m) {cw}x{ch} spp{cspp} depth"
+              f"{ccfg.max_depth}: render_frame_fused against the plain "
+              f"version on the card: identical in every pixel and the ray "
+              f"count {same} (tolerance: identical), {int(n_p)} rays, lit "
+              f"{checks[i]['lit']:.3f}; plain {plain_ms:.1f} ms; "
+              f"{work['visits']} binary visits, {work['tests']} triangle "
+              f"tests; bound scaled to Run A's frame "
+              f"{bounds['run_a'][0]:.4f} ms, to Run B's "
+              f"{bounds['run_b'][0]:.4f} ms, by {bounds['run_b'][1]}")
+        require(same, f"pose {i}: the path kernel and its plain version "
+                      "differ")
+    result = dict(card=card, poses=n, orbit_cli_s=cli_s,
+                  separation_m={i: sep[i] for i in RDV_SAMPLES},
+                  run_a=run_a, run_b=dict(run_b, chunk_spp=chunk,
+                                          replays=replays),
+                  jax_frames=reference, held=held, check=checks)
+    with open(os.path.join(OUT, "rendezvous.json"), "w") as fh:
+        json.dump(result, fh, indent=1)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2529,6 +2958,10 @@ def main() -> int:
     with open(os.path.join(OUT, "sharded.json"), "w") as fh:
         json.dump(sharded, fh, indent=1)
     phase("21", f"{time.perf_counter() - t0:.0f} s")
+    # 22: the rendezvous sequence through the orbit CLI and the driver
+    t0 = time.perf_counter()
+    rendezvous = rendezvous_phase(dev, card)
+    phase("22", f"{time.perf_counter() - t0:.0f} s")
     # phase 3's launches are microbenchmark launches too; phases 5 and 14
     # (the megakernels' frames, --mode auto's path) required that no
     # traversal kernel was launched; the flagship's sharded sample slices
@@ -2565,10 +2998,21 @@ def main() -> int:
            "sharded flagship, 1-rank NCCL mesh":
                sharded["flagship 1 rank"]["launches"],
            f"sharded flagship, dp={SHARD_DP} ranks":
-               sharded["flagship"]["launches"]})
+               sharded["flagship"]["launches"],
+           f"rendezvous Run A, {RDV_POSES} frames":
+               rendezvous["run_a"]["launches"]["dsrt_path_render"],
+           f"rendezvous Run B, {len(RDV_SAMPLES)} frames":
+               rendezvous["run_b"]["launches"]["dsrt_path_render"]})
     entry["launches"] = sum(entry["launches_by_frame"].values())
     entry["pipeline"] = pipeline
     entry["sharded"] = sharded["flagship"]
+    # the sequence's summary (its frames are in OUT/rendezvous.json)
+    entry["rendezvous"] = dict(
+        {k: rendezvous[k] for k in ("poses", "separation_m", "jax_frames",
+                                    "held", "check")},
+        **{run: {k: v for k, v in rendezvous[run].items()
+                 if k not in ("frames", "pngs", "out_dir")}
+           for run in ("run_a", "run_b")})
     sph = kernels["dsrt_sphere_render"]
     sph["launches_by_frame"]["adaptive rtiow"] = \
         adaptive["dsrt_sphere_render"]["launches"]

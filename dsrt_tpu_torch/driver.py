@@ -292,6 +292,24 @@ def build_scene(args, timer: StageTimer, device):
     return scene
 
 
+def render_config(args) -> RenderConfig:
+    """The frames' RenderConfig from the parsed flags."""
+    return RenderConfig(width=args.width, height=args.height, spp=args.spp,
+                        max_depth=args.max_depth, vfov=args.vfov,
+                        gamma=args.gamma, seed=args.seed, sky_type=args.sky)
+
+
+def frame_inputs(args, scene, frame, device):
+    """(scene, camera) of one pose's frame as the frame loop renders it:
+    `scene` lit by the frame's sun, and the camera at the frame's
+    model-space position looking at the origin with the flags' field of
+    view and size."""
+    cam = point_camera_at(frame.cam_in_model, (0.0, 0.0, 0.0),
+                          vfov=args.vfov, width=args.width,
+                          height=args.height, device=device)
+    return scene.with_sun(frame.sun_dir_model), cam
+
+
 def run(args, scene=None) -> int:
     """Render every pose of the pose file; `scene` (compiled on the
     device of --device) replaces the scene the mesh flags describe.
@@ -342,9 +360,7 @@ def _run(args, scene, device, mesh) -> int:
     else:
         print(f"Loaded {len(poses)} poses.")
 
-    cfg = RenderConfig(width=args.width, height=args.height, spp=args.spp,
-                       max_depth=args.max_depth, vfov=args.vfov,
-                       gamma=args.gamma, seed=args.seed, sky_type=args.sky)
+    cfg = render_config(args)
     budget = (FUSED_DISPATCH_RAYS if args.dispatch_rays is None
               else args.dispatch_rays)
     total_start = time.perf_counter()
@@ -368,10 +384,7 @@ def _run(args, scene, device, mesh) -> int:
         print(f"  sep(cam, model) = {frame.separation_m:.3f} m")
         print(f"  sun_dir_model   = ({frame.sun_dir_model[0]:.6f}, "
               f"{frame.sun_dir_model[1]:.6f}, {frame.sun_dir_model[2]:.6f})")
-        cam = point_camera_at(frame.cam_in_model, (0.0, 0.0, 0.0),
-                              vfov=args.vfov, width=args.width,
-                              height=args.height, device=device)
-        frame_scene = scene.with_sun(frame.sun_dir_model)
+        frame_scene, cam = frame_inputs(args, scene, frame, device)
         if not profiled:
             prof, profiled = start_profile(device), True
         t0 = time.perf_counter()
@@ -440,7 +453,7 @@ def _run(args, scene, device, mesh) -> int:
         rendered += 1
 
     total = time.perf_counter() - total_start
-    print(f"\nTotal runtime: {total:.1f} s ({rendered} frames)")
+    print(f"\nTotal runtime: {total:.3f} s ({rendered} frames)")
     if args.timings_tsv and lead:
         timer.write_tsv(args.timings_tsv)
 

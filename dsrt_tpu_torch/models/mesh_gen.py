@@ -213,27 +213,34 @@ def write_panel_texture(path: str, size: int = 256) -> None:
     write_png(path, np.clip(img, 0, 255).astype(np.uint8))
 
 
-def iss_standin_scene(detail: int = 2, tex_path: str = "",
+def iss_standin_scene(detail: int = 2, sun_dir=(0.35, 0.65, 0.4),
+                      sun_radiance=(1e5, 9.5e4, 9e4), seed: int = 1337,
+                      bvh_method: str = "sbvh", tex_path: str = "",
+                      sbvh_alpha: float = 1e-5, tex_paths=(),
                       device=None) -> Scene:
-    """Stand-in station at the origin with the reference's default sun
-    (model->Sun (0.35, 0.65, 0.4)) and SBVH; `tex_path` textures the
-    solar-panel and radiator quads.  On the card unless `device` says
-    otherwise."""
-    b = SceneBuilder(sun_enabled=True, sun_dir=(0.35, 0.65, 0.4),
-                     sun_radiance=(1e5, 9.5e4, 9e4), seed=1337,
-                     bvh_method="sbvh")
-    b.add_mesh(iss_standin_mesh(detail, tex_path=tex_path))
+    """Stand-in station at the origin with a directional sun; `sun_dir` is
+    the model->Sun direction as the pose pipeline supplies it (the
+    renderer negates it; default the reference's (0.35, 0.65, 0.4)).
+    `tex_path` textures the solar-panel and radiator quads; `tex_paths`
+    gives each solar wing its own map (iss_standin_mesh).  On the card
+    unless `device` says otherwise."""
+    b = SceneBuilder(sun_enabled=True, sun_dir=sun_dir,
+                     sun_radiance=sun_radiance, seed=seed,
+                     bvh_method=bvh_method, sbvh_alpha=sbvh_alpha)
+    b.add_mesh(iss_standin_mesh(detail, tex_path=tex_path,
+                                tex_paths=tex_paths))
     return b.build(device=device)
 
 
-def iss_mixed_scene(detail: int = 4, seed: int = 1337, device=None) -> Scene:
+def iss_mixed_scene(detail: int = 4, device=None, **kw) -> Scene:
     """The stand-in mesh plus free-flying primitives (a visiting-vehicle
     sphere pair and a metal tank): triangles and spheres in one scene,
-    SBVH like iss_standin_scene.  On the card unless `device` says
-    otherwise."""
-    b = SceneBuilder(sun_enabled=True, sun_dir=(0.35, 0.65, 0.4),
-                     sun_radiance=(1e5, 9.5e4, 9e4), seed=seed,
-                     bvh_method="sbvh")
+    SBVH like iss_standin_scene.  `kw` goes to SceneBuilder, with the
+    stand-in's sun, seed and BVH method as defaults.  On the card unless
+    `device` says otherwise."""
+    opts = dict(sun_enabled=True, sun_dir=(0.35, 0.65, 0.4),
+                sun_radiance=(1e5, 9.5e4, 9e4), seed=1337, bvh_method="sbvh")
+    b = SceneBuilder(**{**opts, **kw})
     b.add_mesh(iss_standin_mesh(detail))
     b.add_sphere((12.0, 6.0, -14.0), 2.2,
                  Material.lambertian((0.82, 0.8, 0.78)))

@@ -385,7 +385,11 @@ class SceneBuilder:
     def __init__(self, sun_enabled: bool = True,
                  sun_dir: Tuple[float, float, float] = (0.0, 1.0, 0.0),
                  sun_radiance: Tuple[float, float, float] = (1e5, 9.5e4, 9e4),
-                 seed: int = 1337, bvh_method: str = "median"):
+                 seed: int = 1337, bvh_method: str = "median",
+                 sbvh_alpha: float = 1e-5):
+        """`sbvh_alpha` is the SBVH's spatial-split gate (the overlap's
+        share of the root's surface area above which a split is tried; 0
+        always tries)."""
         self._meshes: List[_MeshEntry] = []
         self._spheres: List[tuple] = []
         self._quads: List[tuple] = []
@@ -396,6 +400,7 @@ class SceneBuilder:
         self.sun_radiance = np.asarray(sun_radiance, np.float32)
         self.seed = seed
         self.bvh_method = bvh_method
+        self.sbvh_alpha = sbvh_alpha
 
     def add_triangle(self, v0, v1, v2, material: Material, uv0=(0, 0),
                      uv1=(0, 0), uv2=(0, 0), tex_path: str = "") -> None:
@@ -593,7 +598,7 @@ class SceneBuilder:
             tri_tex = -np.ones(1, np.int32)
 
         bvh = build_bvh(v0[:n_tris], v1[:n_tris], v2[:n_tris],
-                        method=self.bvh_method)
+                        method=self.bvh_method, sbvh_alpha=self.sbvh_alpha)
         if n_tris:
             # triangles in BVH-leaf order (SBVH: one row per reference)
             perm = bvh.tri_indices

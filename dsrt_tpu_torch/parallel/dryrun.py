@@ -9,13 +9,16 @@ makes JAX's three checks on the detail-1 stand-in at 48x24:
 - `render_frame_fused_sharded` at spp 1 equals `render_frame_fused`
   (k = 2 packets, so with more ranks than 2 some shards are all padding).
 A failed check raises on rank 0, which fails the run.  The ranks join
-over gloo on the CPU, or on cuda ranks by mesh.py's rule.
+over gloo on the CPU, or on cuda ranks by mesh.py's rule; the ranks
+render on the card unless the caller asks for the CPU, and without a card
+the run raises before any rank starts.
 
 `render_jobs` is a rank function for a list of `Job`s (the CPU tests
 and the card's smoke test): every rank builds each job's scene and
 camera, renders the sharded frame, and rank 0 saves the images, the ray
 counts and each rank's pixels and launches with torch.save.
 
+    python -m dsrt_tpu_torch.parallel.dryrun --ranks 2
     python -m dsrt_tpu_torch.parallel.dryrun --ranks 4 --device cpu
 """
 
@@ -30,6 +33,7 @@ import torch
 import torch.distributed as dist
 
 from dsrt_tpu_torch.config import RenderConfig
+from dsrt_tpu_torch.device import resolve_device
 from dsrt_tpu_torch.parallel.mesh import auto_mesh, make_mesh, spawn_ranks
 from dsrt_tpu_torch.parallel.render import (render_frame_fused_sharded,
                                             render_frame_sharded,
@@ -85,11 +89,13 @@ def _dryrun_rank(device: str) -> None:
               flush=True)
 
 
-def dryrun_multichip(n_ranks: int, device: str = "cpu") -> None:
-    """Spawn `n_ranks` ranks rendering on `device` and make the three
-    checks of the module docstring; raises when one fails."""
-    spawn_ranks(_dryrun_rank, n_ranks, device,
-                threads=1 if device == "cpu" else None)
+def dryrun_multichip(n_ranks: int, device=None) -> None:
+    """Spawn `n_ranks` ranks rendering on `device` (None: the card) and
+    make the three checks of the module docstring; raises when one fails,
+    and before spawning when CUDA is asked for and there is no card."""
+    dev = resolve_device(device)
+    spawn_ranks(_dryrun_rank, n_ranks, dev.type,
+                threads=1 if dev.type == "cpu" else None)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,8 +136,9 @@ def _launch_counts() -> dict:
     return counts
 
 
-def render_jobs(jobs, out: str, device: str = "cpu") -> None:
-    """Rank function: render each Job across every rank; rank 0 saves
+def render_jobs(jobs, out: str, device=None) -> None:
+    """Rank function: render each Job across every rank on `device` (None:
+    the rank's card); rank 0 saves
     {job name: {"img": u8 numpy, "rays": exact count (fused) or None,
     "ranks": [each rank's dict]}} to `out`.  A rank's dict holds its
     place in the mesh, its pixels and the kernels it launched in the
@@ -163,9 +170,10 @@ def main(argv=None) -> int:
         prog="dsrt_tpu_torch.parallel.dryrun",
         description="multi-rank dry run of the sharded renders")
     p.add_argument("--ranks", type=int, default=4)
-    p.add_argument("--device", default="cpu",
-                   help="cpu (gloo) or cuda (each rank on cuda:{rank % "
-                        "cards}; NCCL when every rank has its own card)")
+    p.add_argument("--device", default=None,
+                   help="cuda (the default: each rank on cuda:{rank % "
+                        "cards}; NCCL when every rank has its own card) or "
+                        "cpu (gloo)")
     args = p.parse_args(argv)
     dryrun_multichip(args.ranks, args.device)
     return 0

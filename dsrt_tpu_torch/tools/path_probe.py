@@ -32,6 +32,7 @@
 
     python3 dsrt_tpu_torch/tools/path_probe.py [--tree DIR] [--reps N]
                                                [--cells | --sphere |
+                                                --rendezvous |
                                                 --traverse [--frames]
                                                 [--waves FILE]]
 
@@ -53,7 +54,10 @@ per walk (8-ary, binary), plus the instances' resources and
 one launch's ops; the records are saved to FILE (default
 build/traverse_waves.pt) by the first run and read by later ones, so
 two trees time the same rays.  --frames adds the split frames' walls.
-Needs one CUDA device.
+With --rendezvous, one line for each of RENDEZVOUS_POSES of the
+rendezvous sequence at one of Run B's chunk launches (1920x1080, 129
+spp) in place of the flagship's: the kernel's time, tail share and
+pixel times.  Needs one CUDA device.
 """
 
 from __future__ import annotations
@@ -73,6 +77,10 @@ import numpy as np
 
 # stamps of at most this many threads a launch
 MAX_THREADS = 1 << 20
+# the rendezvous poses --rendezvous probes: the first, the last two on
+# either side of the render stage's drop between 41 and 42, the middle
+# and the last
+RENDEZVOUS_POSES = (0, 41, 42, 49, 98)
 
 _DEFS = r'''
 // ---- probe: per-thread start and end stamps ----
@@ -851,6 +859,38 @@ def mixed_cells(device):
                               detail=4).build(device=device), station, big)
 
 
+def rendezvous_frames(device, poses=RENDEZVOUS_POSES):
+    """(name, scene, camera, config) of poses of the rendezvous sequence
+    (docs/RUN_RENDEZVOUS.md: the orbit CLI's --time 1 --dt 0.01 poses,
+    the driver's textured detail-12 stand-in, camera and sun) at one of
+    Run B's chunk launches (1920x1080, 129 of its 1000 spp)."""
+    import dataclasses
+
+    from dsrt_tpu_torch import driver
+    from dsrt_tpu_torch.orbit import cli
+    from dsrt_tpu_torch.render import fused_chunk_spp
+    from dsrt_tpu_torch.utils.pose import read_pose_file
+    from dsrt_tpu_torch.utils.timing import StageTimer
+    from dsrt_tpu_torch.utils.transform import pose_to_frame
+    tex = Path(__file__).resolve().parents[2] / "misc" / "iss_standin.png"
+    args = driver.build_parser().parse_args(
+        ["--standin_detail", "12", "--standin_tex", str(tex), "--width",
+         "1920", "--height", "1080", "--spp", "1000"])
+    with tempfile.TemporaryDirectory() as td, \
+            contextlib.redirect_stdout(sys.stderr):
+        txt = os.path.join(td, "poses.txt")
+        cli.main(["--time", "1", "--dt", "0.01", "--device", device.type,
+                  "--txt", txt])
+        frames = [pose_to_frame(p) for p in read_pose_file(txt)]
+        scene = driver.build_scene(args, StageTimer(), device)
+    full = driver.render_config(args)
+    cfg = dataclasses.replace(full, spp=fused_chunk_spp(full))
+    for i in poses:
+        f = frames[i]
+        yield (f"rendezvous pose {i} ({f.separation_m:.1f} m)",
+               *driver.frame_inputs(args, scene, f, device), cfg)
+
+
 def event_ms(fn, reps: int) -> float:
     """Mean time of `reps` calls of `fn` after a warm-up (CUDA events)."""
     import torch
@@ -1054,6 +1094,7 @@ def main() -> int:
     mode.add_argument("--cells", action="store_true")
     mode.add_argument("--sphere", action="store_true")
     mode.add_argument("--traverse", action="store_true")
+    mode.add_argument("--rendezvous", action="store_true")
     ap.add_argument("--waves", default=str(Path(__file__).resolve()
                                            .parents[2] / "build"
                                            / "traverse_waves.pt"))
@@ -1088,6 +1129,16 @@ def main() -> int:
         return 0
     if args.traverse:
         return traverse_main(dev, tree, name, args)
+    if args.rendezvous:
+        for cell, scene, cam, cfg in rendezvous_frames(dev):
+            print(json.dumps({"tree": tree, "card": name, "cell": cell,
+                              "shape": f"{cfg.width}x{cfg.height} "
+                                       f"spp{cfg.spp}",
+                              "kernel_ms": kernel_ms(scene, cam, cfg,
+                                                     args.reps),
+                              "reps": args.reps,
+                              **tail_share(scene, cam, cfg)}), flush=True)
+        return 0
     scene, cam, cfg = flagship(dev)
     print(json.dumps({"tree": tree, "card": name, "cell": "flagship",
                       "kernel_ms": kernel_ms(scene, cam, cfg, args.reps),

@@ -215,6 +215,17 @@ def test_dryrun_multichip_on_cpu_ranks():
     dryrun_multichip(RANKS, "cpu")
 
 
+def test_dryrun_cli_without_a_card_raises(monkeypatch):
+    """The dry run's CLI runs on the card unless --device says otherwise:
+    with no card it raises, naming CUDA, before a rank starts."""
+    from dsrt_tpu_torch.parallel import dryrun
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(dryrun, "spawn_ranks", lambda *a, **k: pytest.fail(
+        "ranks spawned without a card"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dryrun.main(["--ranks", "2"])
+
+
 # (c) the port against JAX's sharded render
 
 @pytest.fixture(scope="module")

@@ -161,6 +161,35 @@ def test_textured_standin_tables_match(tmp_path):
     assert_same_tables(scene_from_reference(ref, device="cpu"), ref)
 
 
+@pytest.mark.parametrize("bvh_method", ["sah", "sbvh"])
+def test_standin_scene_options_tables_match(tmp_path, bvh_method):
+    """iss_standin_scene's JAX options (four wing maps, sun, seed, BVH
+    method, SBVH split gate) reach the same tables as JAX's."""
+    texs = []
+    for k in range(4):
+        texs.append(str(tmp_path / f"wing{k}.png"))
+        tmesh.write_panel_texture(texs[-1], size=16 + 8 * k)
+    kw = dict(detail=2, sun_dir=(-0.2, 0.9, 0.1),
+              sun_radiance=(3.0, 2.0, 1.0), seed=7, bvh_method=bvh_method,
+              sbvh_alpha=0.0, tex_paths=tuple(texs))
+    port = tmesh.iss_standin_scene(**kw, device="cpu")
+    ref = jmesh.iss_standin_scene(**kw)
+    assert port.n_textures == 4 and port.seed == 7
+    assert_same_tables(port, ref)
+    if bvh_method == "sbvh":
+        # the gate reached the builder: alpha 1 tries no spatial split
+        unsplit = tmesh.iss_standin_scene(**dict(kw, sbvh_alpha=1.0),
+                                          device="cpu")
+        assert port.n_tris > unsplit.n_tris
+
+
+def test_mixed_scene_options_reach_the_builder():
+    kw = dict(detail=1, sun_dir=(0.1, -0.5, 0.8), seed=3, bvh_method="sbvh",
+              sbvh_alpha=0.0)
+    assert_same_tables(tmesh.iss_mixed_scene(**kw, device="cpu"),
+                       jmesh.iss_mixed_scene(**kw))
+
+
 @pytest.mark.slow
 def test_flagship_scene_round_trip(tmp_path):
     """The flagship: textured detail-12 stand-in (51k triangles)."""
