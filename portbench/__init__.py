@@ -1,0 +1,1 @@
+"""Benchmark of dsrt_tpu_torch on the H100: see README.md."""

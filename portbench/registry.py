@@ -1,0 +1,80 @@
+"""Everything the harness runs is found by name from files.
+
+- a cell is an entry of `workloads` in BENCHMARK.json;
+- its configuration is the JSON file that BENCHMARK.json's `configs`
+  entry names;
+- its traffic mix is `<bench>/traffic/<traffic>.json`, read by the one
+  general generator, portbench/traffic.py;
+- a metric, end-to-end or per-layer, is read by
+  `<bench>/metrics/<name>.py`, a module with `read(run) -> float | None`
+  (or, where there is no such file, by the reader of the name cut at its
+  last dot).
+
+`Bench(root)` looks under `root` (a checkout, or any directory laid out
+the same way), so a new cell, mix or metric is added by adding files.
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import json
+from pathlib import Path
+
+PKG = "portbench"
+REPO = Path(__file__).resolve().parent.parent
+
+
+class Bench:
+    def __init__(self, root=REPO):
+        self.root = Path(root)
+        self.spec = json.loads((self.root / "BENCHMARK.json").read_text())
+        self.dir = self.root / PKG
+
+    def cell(self, name: str) -> dict:
+        for w in self.spec["workloads"]:
+            if w["name"] == name:
+                return w
+        raise KeyError(f"no workload {name!r} in BENCHMARK.json")
+
+    def config(self, name: str) -> dict:
+        for c in self.spec["configs"]:
+            if c["name"] == name:
+                return json.loads((self.root / c["file"]).read_text())
+        raise KeyError(f"no config {name!r} in BENCHMARK.json")
+
+    def traffic(self, name: str) -> dict:
+        return json.loads((self.dir / "traffic" / f"{name}.json").read_text())
+
+    def data(self, rel: str) -> Path:
+        return self.dir / rel
+
+    def metrics(self, cell: str, kind: str) -> list:
+        """The `end_to_end` or `per_layer` entries that `cell` reports:
+        those that list it under `workloads`, and those without the key:
+        an end-to-end metric in every cell, a per-layer metric in every
+        cell that reports the end-to-end metric it `moves`."""
+        found = [m for m in self.spec[kind]
+                 if cell in m.get("workloads", [cell])]
+        if kind == "per_layer":
+            e2e = {m["name"] for m in self.metrics(cell, "end_to_end")}
+            found = [m for m in found
+                     if "workloads" in m or m["moves"] in e2e]
+        return found
+
+    def reader_file(self, name: str) -> Path:
+        """metrics/<name>.py or, where there is none, the file of the name
+        cut at its last dot, and so on: a quantity split by configuration
+        (`s_per_frame.rdv_b`) is read by the quantity's reader."""
+        stem = name
+        while not (self.dir / "metrics" / f"{stem}.py").exists() \
+                and "." in stem:
+            stem = stem.rsplit(".", 1)[0]
+        return self.dir / "metrics" / f"{stem}.py"
+
+    def reader(self, name: str):
+        path = self.reader_file(name)
+        spec = importlib.util.spec_from_file_location(
+            f"{PKG}_metric_{name.replace('.', '_')}", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod.read

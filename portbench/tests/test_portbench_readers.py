@@ -1,0 +1,92 @@
+"""The metric readers on a canned profiler trace and driver TSV."""
+
+import json
+
+import pytest
+
+from portbench import trace as tracemod
+from portbench.harness import Frame, Run
+from portbench.registry import Bench
+
+K = "void dsrt::path_render_kernel<0>(dsrt::PathArgs)"
+
+
+def canned_events():
+    ev = [{"ph": "X", "cat": "user_annotation", "name": tracemod.WINDOW,
+           "ts": 1000.0, "dur": 10000.0},
+          {"ph": "X", "cat": "user_annotation", "name": tracemod.CALL,
+           "ts": 1000.0, "dur": 7000.0},
+          {"ph": "X", "cat": "cpu_op", "name": "aten::copy_",
+           "ts": 4400.0, "dur": 300.0}]
+    # two path kernel launches, one overlapping memcpy, one tonemap kernel
+    ev += [{"ph": "X", "cat": "kernel", "name": K, "ts": 1500.0, "dur": 2000.0},
+           {"ph": "X", "cat": "kernel", "name": K, "ts": 5000.0, "dur": 3000.0},
+           {"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy DtoH",
+            "ts": 7500.0, "dur": 1000.0},
+           {"ph": "X", "cat": "kernel", "name": "pow_kernel", "ts": 3600.0,
+            "dur": 400.0},
+           # outside the window: not counted
+           {"ph": "X", "cat": "kernel", "name": K, "ts": 20000.0, "dur": 50.0}]
+    return ev
+
+
+def canned_run():
+    run = Run()
+    run.trace = tracemod.reduce(canned_events())
+    run.window_s = 4.0
+    run.setup_s = 12.5
+    run.scene_compile_s = 1.75
+    run.frames = [Frame(0, i, "", "", w) for i, w in
+                  enumerate([0.5, 0.25, 0.25, None, 1.5])]
+    run.tsv = [("render", 0.2), ("encode", 0.01), ("render", 0.3),
+               ("encode", 0.03), ("render", 0.1), ("encode", 0.02),
+               ("render", 0.2), ("encode", 0.02)]
+    return run
+
+
+def test_trace_reduction():
+    tr = tracemod.reduce(canned_events())
+    assert tr.window_s == pytest.approx(0.010)
+    # busy: [1500,3500] [3600,4000] [5000,8500] -> 5.9 ms
+    assert tr.busy_s == pytest.approx(0.0059)
+    assert tr.ops[K] == (pytest.approx(0.005), 2)
+    gaps = dict((round(s, 6), lab) for lab, s in tr.gaps)
+    assert gaps[0.0025] == "harness between driver calls"     # 8500-11000
+    assert gaps[0.001] == "aten::copy_"                        # 4000-5000
+    assert gaps[0.0005] == "driver host code outside torch ops"  # 1000-1500
+    bd = tracemod.breakdown(tr)
+    assert bd["device_ops"][0] == [K, pytest.approx(0.005)]
+    assert len(bd["idle_gaps"]) == 4
+
+
+EXPECT = {
+    "s_per_frame": 1.0,                      # 4 s over 4 PNGs
+    "frame_p95_s": 1.35,                     # waits .25 .25 .5 1.5, linear
+    "setup_s": 12.5,
+    "scene.compile_s": 1.75,
+    "driver.encode_ms": 80.0 / 4,
+    "driver.render_stage_ms": 800.0 / 4,
+    "path_kernel.device_ms": 5.0 / 4,
+    "path_kernel.launches": 2 / 4,
+    "device.idle_share": 100.0 * (1 - 0.0059 / 0.010),
+}
+
+
+@pytest.mark.parametrize("name", sorted(EXPECT))
+def test_reader(name):
+    assert Bench().reader(name)(canned_run()) == pytest.approx(EXPECT[name])
+
+
+def test_every_benchmark_metric_has_a_case_here():
+    b = Bench()
+    spec = json.loads(b.root.joinpath("BENCHMARK.json").read_text())
+    names = {m["name"] for k in ("end_to_end", "per_layer") for m in spec[k]}
+    assert {b.reader_file(n).stem for n in names} == set(EXPECT)
+
+
+@pytest.mark.parametrize("name", ["path_kernel.device_ms",
+                                  "path_kernel.launches", "device.idle_share"])
+def test_trace_readers_give_nothing_without_a_trace(name):
+    run = canned_run()
+    run.trace = None
+    assert Bench().reader(name)(run) is None
