@@ -21,6 +21,19 @@ encodes the one before; with `--no_pipeline` each frame is waited for
 and encoded before the next is issued.  The PNG bytes are the same
 either way.  `--profile DIR` writes a
 torch.profiler trace of the first rendered frame to DIR/trace.json.
+
+`--timings_tsv PATH` writes the run's spans (utils/timing.py), one row a
+span (`stage`, `duration_ns`, `frame`: the pose-line index i of
+`frame_{i:04d}.png`, -1 outside a frame): `run` (the whole loop, up to
+the TSV), `mesh_load` and `scene_compile` (unless a scene is passed in),
+and per frame `inputs` (`frame_inputs`: camera and sun on the device),
+`issue` (the render call: for fused and wavefront frames
+`render_frame_async`, which returns before the card is done), one
+`launch` a path-kernel call (ops/path_kernel.py `path_render`), `wait`
+(`render.finish`, on an issued frame), `encode`, and the row `render`,
+from issue to the image on the host, which overlaps the encode of the
+frame before.  While a torch profiler runs, each span but `render` is
+also a `record_function` annotation of the same name.
 `--upscale` then runs the super-resolution post-process over the output
 directory into `<output_dir>_upscaled` (scripts/upsample.py
 `process_folder`, x4, backend auto: the RRDBNet on cached weights, else
@@ -76,6 +89,7 @@ from dsrt_tpu_torch.config import RenderConfig
 from dsrt_tpu_torch.models.materials import Material
 from dsrt_tpu_torch.utils.image_io import write_png, write_ppm
 from dsrt_tpu_torch.utils.pose import default_pose, read_pose_file
+from dsrt_tpu_torch.utils import timing
 from dsrt_tpu_torch.utils.timing import StageTimer, mrays_per_sec
 from dsrt_tpu_torch.utils.transform import pose_to_frame
 from dsrt_tpu_torch.models.scene import SceneBuilder
@@ -155,7 +169,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--save_ppm", action="store_true",
                    help="also write binary PPM P6")
     p.add_argument("--timings_tsv", default="",
-                   help="write per-stage timings TSV here")
+                   help="write the run's spans here as a TSV: stage, "
+                        "duration_ns, frame (the frame id, -1 outside a "
+                        "frame)")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (the kernels) or cpu (their "
                         "plain versions)")
@@ -243,19 +259,22 @@ def stop_profile(prof, out_dir: str) -> None:
 def finish_frame(pending, timer: StageTimer, args) -> None:
     """Wait for an issued frame, then encode it."""
     idx, png, frame, t0, label = pending
-    img, nrays = finish(frame)
-    dt = time.perf_counter() - t0   # issue -> on the host
-    timer.log("render", dt)
+    with timer.stage("wait", frame=idx):
+        img, nrays = finish(frame)
+    timer.log("render", t0, frame=idx)   # issue -> on the host
+    dt = (timer.now() - t0) * 1e-9
     print(f"  [frame {idx}] render ({label}) + wait: {dt*1e3:.0f} ms, "
           f"{mrays_per_sec(nrays, dt):.1f} Mrays/s, {nrays} rays exact")
-    encode(png, img, timer, args)
+    with timer.stage("encode", frame=idx):
+        encode(png, img, timer, args)
 
 
 def encode(png: str, img, timer: StageTimer, args) -> None:
-    with timer.stage("encode"):
-        write_png(png, img)
-        if args.save_ppm:
-            write_ppm(png[:-4] + ".ppm", img)
+    """Write a frame's PNG (and PPM); the caller holds its `encode`
+    span."""
+    write_png(png, img)
+    if args.save_ppm:
+        write_ppm(png[:-4] + ".ppm", img)
     print(f"Saved {png}")
 
 
@@ -334,6 +353,27 @@ def run(args, scene=None) -> int:
 def _run(args, scene, device, mesh) -> int:
     lead = mesh is None or mesh.rank == 0
     timer = StageTimer()
+    with timing.recording(timer), timer.stage("run"):
+        _render_poses(args, scene, device, mesh, lead, timer)
+    if args.timings_tsv and lead:
+        timer.write_tsv(args.timings_tsv)
+
+    if mesh is not None:
+        import torch.distributed as dist
+        dist.barrier()   # every rank is done with the card
+    if args.upscale and lead:
+        from dsrt_tpu_torch.scripts.upsample import process_folder
+        process_folder(args.output_dir, args.output_dir + "_upscaled",
+                       scale=4, device=device)
+    elif not args.upscale:
+        print("Upscaling disabled (use --upscale to enable).")
+    return 0
+
+
+def _render_poses(args, scene, device, mesh, lead: bool,
+                  timer: StageTimer) -> None:
+    """The frame loop of _run: render every selected pose and, on the
+    lead rank, encode it; each stage is a span of `timer`."""
     if lead:
         os.makedirs(args.output_dir, exist_ok=True)
         if args.wipe:
@@ -384,44 +424,47 @@ def _run(args, scene, device, mesh) -> int:
         print(f"  sep(cam, model) = {frame.separation_m:.3f} m")
         print(f"  sun_dir_model   = ({frame.sun_dir_model[0]:.6f}, "
               f"{frame.sun_dir_model[1]:.6f}, {frame.sun_dir_model[2]:.6f})")
-        frame_scene, cam = frame_inputs(args, scene, frame, device)
+        with timer.stage("inputs", frame=i):
+            frame_scene, cam = frame_inputs(args, scene, frame, device)
         if not profiled:
             prof, profiled = start_profile(device), True
-        t0 = time.perf_counter()
+        t0 = timer.now()
         issued = None
-        if args.debug_shade:
-            label = "debug"
-            img, nrays = render_frame_debug(frame_scene, cam, cfg), None
-        elif mesh is not None:
-            from dsrt_tpu_torch.parallel.render import (
-                render_frame_fused_sharded, render_frame_sharded)
-            if args.shard_sp == 1 and fused_kind(frame_scene, cfg):
-                # dp only: every rank runs the megakernel on its pixel
-                # shard (bit-identical to one process)
-                label = "fused sharded"
-                img, nrays = render_frame_fused_sharded(
-                    frame_scene, cam, cfg, mesh, with_count=True)
+        with timer.stage("issue", frame=i):
+            if args.debug_shade:
+                label = "debug"
+                img, nrays = render_frame_debug(frame_scene, cam, cfg), None
+            elif mesh is not None:
+                from dsrt_tpu_torch.parallel.render import (
+                    render_frame_fused_sharded, render_frame_sharded)
+                if args.shard_sp == 1 and fused_kind(frame_scene, cfg):
+                    # dp only: every rank runs the megakernel on its pixel
+                    # shard (bit-identical to one process)
+                    label = "fused sharded"
+                    img, nrays = render_frame_fused_sharded(
+                        frame_scene, cam, cfg, mesh, with_count=True)
+                else:
+                    label = "sharded"
+                    img = render_frame_sharded(frame_scene, cam, cfg, mesh)
+                    nrays = None
+                label += f" over {mesh.sp}x{mesh.dp} ranks"
+            elif args.adaptive > 0:
+                label = "adaptive"
+                img, stats = render_frame_adaptive(
+                    frame_scene, cam, cfg, tol=args.adaptive,
+                    chunk_spp=args.adaptive_chunk or None, with_count=True)
+                nrays = stats["rays"]
+                print(f"  [frame {i}] adaptive: mean spp "
+                      f"{stats['mean_spp']:.1f}/{cfg.spp} over "
+                      f"{stats['rounds']} rounds")
             else:
-                label = "sharded"
-                img = render_frame_sharded(frame_scene, cam, cfg, mesh)
-                nrays = None
-            label += f" over {mesh.sp}x{mesh.dp} ranks"
-        elif args.adaptive > 0:
-            label = "adaptive"
-            img, stats = render_frame_adaptive(
-                frame_scene, cam, cfg, tol=args.adaptive,
-                chunk_spp=args.adaptive_chunk or None, with_count=True)
-            nrays = stats["rays"]
-            print(f"  [frame {i}] adaptive: mean spp {stats['mean_spp']:.1f}"
-                  f"/{cfg.spp} over {stats['rounds']} rounds")
-        else:
-            label = resolve_mode(args.mode, frame_scene, cfg)
-            if label in ("fused", "wavefront"):
-                issued = render_frame_async(frame_scene, cam, cfg, mode=label,
-                                            spp_batch=args.spp_batch,
-                                            budget=budget)
-            else:
-                img, nrays = render(label, frame_scene, cam, cfg)
+                label = resolve_mode(args.mode, frame_scene, cfg)
+                if label in ("fused", "wavefront"):
+                    issued = render_frame_async(
+                        frame_scene, cam, cfg, mode=label,
+                        spp_batch=args.spp_batch, budget=budget)
+                else:
+                    img, nrays = render(label, frame_scene, cam, cfg)
         label = f"{label} on {device.type}"
         if prof is not None:
             if issued is not None and issued.done is not None:
@@ -439,14 +482,15 @@ def _run(args, scene, device, mesh) -> int:
                 rendered += 1
                 pending = None
             continue
-        dt = time.perf_counter() - t0
-        timer.log("render", dt)
+        timer.log("render", t0, frame=i)
+        dt = (timer.now() - t0) * 1e-9
         rays = ("" if nrays is None else
                 f", {mrays_per_sec(nrays, dt):.1f} Mrays/s, {nrays} rays "
                 "exact")
         print(f"  render ({label}): {dt*1e3:.0f} ms{rays}")
         if lead:
-            encode(png, img, timer, args)
+            with timer.stage("encode", frame=i):
+                encode(png, img, timer, args)
         rendered += 1
     if pending is not None:
         finish_frame(pending, timer, args)
@@ -454,19 +498,6 @@ def _run(args, scene, device, mesh) -> int:
 
     total = time.perf_counter() - total_start
     print(f"\nTotal runtime: {total:.3f} s ({rendered} frames)")
-    if args.timings_tsv and lead:
-        timer.write_tsv(args.timings_tsv)
-
-    if mesh is not None:
-        import torch.distributed as dist
-        dist.barrier()   # every rank is done with the card
-    if args.upscale and lead:
-        from dsrt_tpu_torch.scripts.upsample import process_folder
-        process_folder(args.output_dir, args.output_dir + "_upscaled",
-                       scale=4, device=device)
-    elif not args.upscale:
-        print("Upscaling disabled (use --upscale to enable).")
-    return 0
 
 
 def main(argv=None) -> int:

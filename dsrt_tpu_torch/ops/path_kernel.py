@@ -32,6 +32,7 @@ from dsrt_tpu_torch.models.scene import WIDE_ROW
 from dsrt_tpu_torch.ops import build
 from dsrt_tpu_torch.ops.shade import (check_scope, render_samples,
                                       sun_direction)
+from dsrt_tpu_torch.utils import timing
 
 LAUNCHES = {"dsrt_path_render": 0}
 # scene limits of the kernel (csrc/path_kernel.cuh `Params`)
@@ -316,7 +317,13 @@ def path_render(scene, cam, cfg, spp: int | None = None, salt: int = 0,
     TPU kernel's lane set).  CPU scene: the plain version; CUDA scene:
     kernel `dsrt_path_render`, one thread per pixel running every
     sample, in warps that take 8x4 pixel tiles (with a list, 32 list
-    entries, the list ordered by tile)."""
+    entries, the list ordered by tile).  Each call is one `launch` span
+    (utils/timing.py) of the active recorder."""
+    with timing.span("launch"):
+        return _path_render(scene, cam, cfg, spp, salt, pixels)
+
+
+def _path_render(scene, cam, cfg, spp, salt, pixels):
     spp = cfg.resolved_spp() if spp is None else int(spp)
     if scene.device.type == "cpu":
         return path_render_plain(scene, cam, cfg, spp, salt, pixels)

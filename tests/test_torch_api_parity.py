@@ -110,6 +110,19 @@ DECLARED = {
     ("render.py", "render_frame", "spp_batch"): (
         DROPPED, "JAX's throughput mode of the parity renderer; no caller "
                  "in either package"),
+    ("utils/timing.py", "StageTimer.stage", "extra"): (
+        IDIOM, "a span keeps its frame id and parent span, not free-form "
+               "extras"),
+    ("utils/timing.py", "StageTimer.log", "seconds"): (
+        IDIOM, "a row keeps its start and end on the trace's clock: "
+               "log(name, start_ns, frame) ends it now"),
+    ("utils/timing.py", "StageTimer.log", "extra"): (
+        IDIOM, "as StageTimer.stage's"),
+    ("utils/timing.py", "StageTimer.total", None): (
+        DROPPED, "no caller in the port"),
+    ("utils/timing.py", "estimate_rays", None): (
+        DROPPED, "an estimate; the driver prints the exact ray count, and "
+                 "nothing in the port calls it"),
 }
 
 
