@@ -80,7 +80,10 @@ copies) at their own shapes over a list of their lit pixels and
 uniformly drawn ones; the frames against the JAX package's frames of the same runs over
 their lit pixels; at poses 49 and 98 (160x90, 4 spp) render_frame_fused
 equals the path kernel's plain version on the card, whose counted work
-bounds the kernel at the sequence's frames.
+bounds the kernel at the sequence's frames; the driver's issue path
+(`frame_inputs`, `render_frame_async`) over two poses at Run A's and
+Run B's settings (one launch a frame, and 8) makes no host-device
+synchronisation.
 Each phase prints its lines; any failure raises, so the exit code is
 nonzero.  The last two lines are the kernels' JSON summary and
 {"ok": true, "device": {...}}.  Needs one CUDA device; imports no JAX and
@@ -179,6 +182,13 @@ RDV_TEX = os.path.join(ROOT, "misc", "iss_standin.png")
 # many of the launch's lit pixels, this many drawn uniformly) and the
 # seed of the draw
 RDV_CHUNKS = (1, 4, 7)
+# the issue path's synchronisations are counted over two of the close
+# poses on a frame of this size (width, height), at Run A's spp in one
+# launch a frame and at Run B's in launches of this many primary rays
+# (8 salted chunks a frame, as Run B's frames)
+RDV_SYNC_POSES = (93, 94)
+RDV_SYNC_FRAME = (160, 90)
+RDV_SYNC_RUN_B_RAYS = 160 * 90 * 125
 RDV_A_POSE = 49
 RDV_PIXELS = (768, 256)
 RDV_PIXEL_SEED = 22
@@ -606,11 +616,42 @@ def count_syncs(fn) -> int:
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
+        # the first switch to the mode in a process warns that it is a
+        # prototype ("... synchronizing operations"): not a sync of `fn`
+        del caught[:]
         try:
             fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
     return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def issue_syncs(args, scene, frames, dev) -> int:
+    """Host-device synchronisations of the driver's issue path over two
+    frames: for each, `frame_inputs` then `render_frame_async` in the
+    mode --mode resolves to, the second issued while the first is in
+    flight, as the pipelined frame loop does.  One frame is issued and
+    finished first (the kernel library, the scene's records), and the
+    two after the count."""
+    from dsrt_tpu_torch import driver
+    from dsrt_tpu_torch.render import (FUSED_DISPATCH_RAYS, finish,
+                                       render_frame_async)
+    cfg = driver.render_config(args)
+    budget = (FUSED_DISPATCH_RAYS if args.dispatch_rays is None
+              else args.dispatch_rays)
+
+    def issue(frame):
+        s, cam = driver.frame_inputs(args, scene, frame, dev)
+        return render_frame_async(s, cam, cfg,
+                                  mode=driver.resolve_mode(args.mode, s, cfg),
+                                  spp_batch=args.spp_batch, budget=budget)
+
+    finish(issue(frames[0]))
+    issued = []
+    n = count_syncs(lambda: issued.extend(issue(f) for f in frames[:2]))
+    for frame in issued:
+        finish(frame)
+    return n
 
 
 def profile_frame(fn):
@@ -2408,7 +2449,9 @@ def rendezvous_phase(dev, card: str) -> dict:
     render_frame_fused must equal the path kernel's plain version on the
     card in every pixel and ray count; the plain version's node visits and
     triangle tests, scaled to Run A's and Run B's frames, give the
-    kernel's bound at those poses."""
+    kernel's bound at those poses.  Last, `issue_syncs` at Run A's and
+    Run B's settings on a RDV_SYNC_FRAME frame (Run B's in 8 chunk
+    launches a frame) must count no synchronisation."""
     from dsrt_tpu_torch import driver
     from dsrt_tpu_torch.ops import path_kernel
     from dsrt_tpu_torch.ops.trace import walk_counter
@@ -2657,11 +2700,33 @@ def rendezvous_phase(dev, card: str) -> dict:
               f"{bounds['run_b'][0]:.4f} ms, by {bounds['run_b'][1]}")
         require(same, f"pose {i}: the path kernel and its plain version "
                       "differ")
+
+    # 5. the driver's issue path at Run A's and Run B's settings waits
+    # for nothing on the card
+    sw, sh = RDV_SYNC_FRAME
+    syncs = {}
+    for tag, spp, extra, launches in (
+            ("run_a", RDV_RUN_A[2], [], "one launch"),
+            ("run_b", RDV_RUN_B[2],
+             ["--dispatch_rays", str(RDV_SYNC_RUN_B_RAYS)], "8 launches")):
+        args_s = driver.build_parser().parse_args(rendezvous_args(
+            poses99, run_a["out_dir"], (sw, sh, spp)) + extra)
+        syncs[tag] = issue_syncs(args_s, scene,
+                                 [frames[i] for i in RDV_SYNC_POSES], dev)
+        phase("22 rendezvous syncs",
+              f"{tag}: frame_inputs and render_frame_async at {spp} spp "
+              f"on a {sw}x{sh} frame ({launches} a frame), poses "
+              f"{list(RDV_SYNC_POSES)}, the second issued while the first "
+              f"is in flight: {syncs[tag]} host-device synchronisations "
+              f"(tolerance: 0)")
+        require(syncs[tag] == 0,
+                f"{tag}: the issue path synchronised {syncs[tag]} times")
     result = dict(card=card, poses=n, orbit_cli_s=cli_s,
                   separation_m={i: sep[i] for i in RDV_SAMPLES},
                   run_a=run_a, run_b=dict(run_b, chunk_spp=chunk,
                                           replays=replays),
-                  jax_frames=reference, held=held, check=checks)
+                  jax_frames=reference, held=held, check=checks,
+                  issue_syncs=syncs)
     with open(os.path.join(OUT, "rendezvous.json"), "w") as fh:
         json.dump(result, fh, indent=1)
     return result

@@ -16,9 +16,12 @@ fused frames' per-launch primary-ray budget (0: never chunk).
 
 Fused and wavefront frames are issued with `render_frame_async` and
 pipelined unless `--no_pipeline`: frame n is issued before frame n-1 is
-waited for and encoded, so the card renders one frame while the host
-encodes the one before; with `--no_pipeline` each frame is waited for
-and encoded before the next is issued.  The PNG bytes are the same
+waited for and encoded.  On the card nothing in a frame's inputs or
+issue waits for the device (its camera and sun go up in copies that
+queue on the stream), so frame n queues behind frame n-1 and the card
+goes from one to the next while the host encodes; at most two frames
+are on the card.  With `--no_pipeline` each frame is waited for and
+encoded before the next is issued.  The PNG bytes are the same
 either way.  `--profile DIR` writes a
 torch.profiler trace of the first rendered frame to DIR/trace.json.
 
@@ -30,10 +33,11 @@ and per frame `inputs` (`frame_inputs`: camera and sun on the device),
 `issue` (the render call: for fused and wavefront frames
 `render_frame_async`, which returns before the card is done), one
 `launch` a path-kernel call (ops/path_kernel.py `path_render`), `wait`
-(`render.finish`, on an issued frame), `encode`, and the row `render`,
-from issue to the image on the host, which overlaps the encode of the
-frame before.  While a torch profiler runs, each span but `render` is
-also a `record_function` annotation of the same name.
+(`render.finish`, on an issued frame: with the pipeline, the wait for
+the frame in flight, which `inputs` does not hold), `encode`, and the
+row `render`, from issue to the image on the host, which overlaps the
+encode of the frame before.  While a torch profiler runs, each span but
+`render` is also a `record_function` annotation of the same name.
 `--upscale` then runs the super-resolution post-process over the output
 directory into `<output_dir>_upscaled` (scripts/upsample.py
 `process_folder`, x4, backend auto: the RRDBNet on cached weights, else

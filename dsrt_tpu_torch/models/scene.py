@@ -42,7 +42,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from dsrt_tpu_torch.device import resolve_device
+from dsrt_tpu_torch.device import resolve_device, to_device
 from dsrt_tpu_torch.models.bvh_build import BVH, build_bvh, collapse_wide
 from dsrt_tpu_torch.models.materials import (DEFAULT_MATERIAL, DIFFUSE_LIGHT,
                                              Material)
@@ -134,6 +134,12 @@ class Scene:
     env_scale: float
     seed: int
     wide_stack: int              # the wide walk's worst stack height
+    # sun_dir's and sun_radiance's float32 values on the host, set with
+    # them, so the kernel wrappers read the sun without waiting for the
+    # device
+    sun_dir_host: np.ndarray = dataclasses.field(compare=False, repr=False)
+    sun_radiance_host: np.ndarray = dataclasses.field(compare=False,
+                                                      repr=False)
     # what the kernel wrappers derive from the tables once per scene
     # (ops/path_kernel.py); shared by the copies `with_sun` makes
     cache: dict = dataclasses.field(default_factory=dict, compare=False,
@@ -152,9 +158,12 @@ class Scene:
             name: getattr(self, name).to(device) for name, _ in TABLES})
 
     def with_sun(self, sun_dir) -> "Scene":
-        """Same tables, new sun direction (one 3-vector upload)."""
-        return dataclasses.replace(self, sun_dir=torch.as_tensor(
-            np.asarray(sun_dir, np.float32), device=self.device))
+        """Same tables, new sun direction: one 3-vector upload (on the
+        card one that does not wait for the stream, `to_device`), its
+        host copy kept beside it."""
+        host = np.array(sun_dir, np.float32)
+        return dataclasses.replace(self, sun_dir=to_device(host, self.device),
+                                   sun_dir_host=host)
 
 
 def scene_from_reference(ref, device=None) -> Scene:
@@ -171,7 +180,9 @@ def scene_from_reference(ref, device=None) -> Scene:
     meta = {name: int(getattr(ref, name)) for name in INT_META}
     meta.update({name: bool(getattr(ref, name)) for name in BOOL_META})
     meta.update({name: float(getattr(ref, name)) for name in FLOAT_META})
-    return Scene(**tables, **meta, wide_stack=stack)
+    return Scene(**tables, **meta, wide_stack=stack,
+                 sun_dir_host=host["sun_dir"],
+                 sun_radiance_host=host["sun_radiance"])
 
 
 def _pack_for_kernel(bvh: BVH, v0: np.ndarray, v1: np.ndarray,
@@ -739,7 +750,8 @@ class SceneBuilder:
         pool, tex_w, tex_h, tex_off, n_tex = texreg.build_pool()
         pool = _bf16_round(pool)
 
-        sun_dir = self.sun_dir / max(np.linalg.norm(self.sun_dir), 1e-300)
+        sun_dir = np.asarray(self.sun_dir / max(np.linalg.norm(
+            self.sun_dir), 1e-300), np.float32)
 
         def t(a, dtype):
             return torch.as_tensor(np.asarray(a, dtype), device=device)
@@ -780,4 +792,5 @@ class SceneBuilder:
             has_moving=bool((sph_center2 != sph_center).any()),
             env_tex=int(env_tex), env_rotation=float(env_rot),
             env_scale=float(env_scale), seed=int(self.seed),
-            wide_stack=int(wide_stack))
+            wide_stack=int(wide_stack), sun_dir_host=sun_dir,
+            sun_radiance_host=np.array(self.sun_radiance, np.float32))

@@ -17,37 +17,51 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from dsrt_tpu_torch.device import resolve_device
+from dsrt_tpu_torch.device import resolve_device, to_device
 from dsrt_tpu_torch.ops import rng as rngmod
 from dsrt_tpu_torch.ops.linalg import V3, const
 
 
 @dataclasses.dataclass(frozen=True)
 class Camera:
-    origin: torch.Tensor       # f32[3]
-    lower_left: torch.Tensor   # f32[3]
-    horizontal: torch.Tensor   # f32[3]
-    vertical: torch.Tensor     # f32[3]
-    u: torch.Tensor
-    v: torch.Tensor
-    w: torch.Tensor
-    lens_radius: torch.Tensor  # f32[]
+    """The camera's 22 float32 values in one tensor; the fields are views
+    of it, and its first 19 floats are the kernels' camera argument."""
+    flat: torch.Tensor         # f32[22], laid out as FIELDS
     width: int
     height: int
 
+    origin = property(lambda self: self.flat[0:3])
+    lower_left = property(lambda self: self.flat[3:6])
+    horizontal = property(lambda self: self.flat[6:9])
+    vertical = property(lambda self: self.flat[9:12])
+    u = property(lambda self: self.flat[12:15])
+    v = property(lambda self: self.flat[15:18])
+    lens_radius = property(lambda self: self.flat[18])   # f32[]
+    w = property(lambda self: self.flat[19:22])
+
     def to(self, device) -> "Camera":
-        return dataclasses.replace(self, **{
-            f.name: getattr(self, f.name).to(device)
-            for f in dataclasses.fields(self)
-            if isinstance(getattr(self, f.name), torch.Tensor)})
+        return dataclasses.replace(self, flat=self.flat.to(device))
 
     def vector(self) -> torch.Tensor:
         """[origin, lower_left, horizontal, vertical, u, v, lens_radius]
-        as f32[19] on the camera's device (the kernels' camera
-        argument)."""
-        return torch.cat([self.origin, self.lower_left, self.horizontal,
-                          self.vertical, self.u, self.v,
-                          self.lens_radius.reshape(1)]).to(torch.float32)
+        as f32[19] on the camera's device (the kernels' camera argument):
+        a view, with no copy."""
+        return self.flat[:19]
+
+
+# the order of the camera's values in Camera.flat
+FIELDS = ("origin", "lower_left", "horizontal", "vertical", "u", "v",
+          "lens_radius", "w")
+
+
+def camera_of(values, width: int, height: int, device) -> Camera:
+    """The camera of `values`, FIELDS' arrays in order, sent to `device`
+    in one copy (`to_device`: on the card one that does not wait for the
+    stream, where a copy a field would each wait for it)."""
+    flat = np.concatenate([np.asarray(a, np.float32).reshape(-1)
+                           for a in values])
+    return Camera(to_device(flat, device), width=int(width),
+                  height=int(height))
 
 
 def make_camera(lookfrom, lookat, vup=(0.0, 1.0, 0.0), vfov: float = 40.0,
@@ -82,14 +96,8 @@ def make_camera(lookfrom, lookat, vup=(0.0, 1.0, 0.0), vfov: float = 40.0,
                   - vertical * np.float32(0.5)
                   - np.float32(focus_dist) * w).astype(np.float32)
 
-    def t(a):
-        return torch.as_tensor(np.asarray(a, np.float32), device=device)
-
-    return Camera(origin=t(origin), lower_left=t(lower_left),
-                  horizontal=t(horizontal), vertical=t(vertical),
-                  u=t(u), v=t(v), w=t(w),
-                  lens_radius=t(np.float32(aperture * 0.5)),
-                  width=int(width), height=int(height))
+    return camera_of((origin, lower_left, horizontal, vertical, u, v,
+                      np.float32(aperture * 0.5), w), width, height, device)
 
 
 def point_camera_at(cam_pos, target=(0.0, 0.0, 0.0), **kw) -> Camera:
@@ -101,15 +109,9 @@ def camera_from_reference(ref, device=None) -> Camera:
     """Camera from any object with the reference Camera's fields (values
     read with np.asarray, so a JAX camera converts without importing JAX
     here), on the card unless `device` says otherwise."""
-    device = resolve_device(device)
-    def t(name):
-        return torch.as_tensor(np.array(getattr(ref, name), np.float32),
-                               device=device)
-    return Camera(origin=t("origin"), lower_left=t("lower_left"),
-                  horizontal=t("horizontal"), vertical=t("vertical"),
-                  u=t("u"), v=t("v"), w=t("w"),
-                  lens_radius=t("lens_radius"),
-                  width=int(ref.width), height=int(ref.height))
+    return camera_of([np.array(getattr(ref, name), np.float32)
+                      for name in FIELDS], ref.width, ref.height,
+                     resolve_device(device))
 
 
 def generate_rays(cam: Camera, px, py, jx, jy) -> Tuple[V3, V3]:

@@ -28,10 +28,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from dsrt_tpu_torch.device import to_device
 from dsrt_tpu_torch.models.scene import WIDE_ROW
 from dsrt_tpu_torch.ops import build
 from dsrt_tpu_torch.ops.shade import (check_scope, render_samples,
-                                      sun_direction)
+                                      sun_ldir_host)
 from dsrt_tpu_torch.utils import timing
 
 LAUNCHES = {"dsrt_path_render": 0}
@@ -177,12 +178,13 @@ def pack_params(scene) -> torch.Tensor:
 def sun_vector(scene, shadow_bias: float) -> torch.Tensor:
     """Ldir (normalised on the host as the plain version does), the sun
     radiance and the shadow bias, f32[7] on the scene's device; made once
-    per sun direction."""
+    per sun direction from the scene's host copies of its sun, with no
+    read from the device, in one copy (`to_device`)."""
     def make():
-        sd = sun_direction(scene)
-        return torch.tensor(
-            [float(c) for c in sd] + [float(c) for c in scene.sun_radiance]
-            + [float(shadow_bias)], dtype=torch.float32, device=scene.device)
+        return to_device(np.array(
+            [float(c) for c in sun_ldir_host(scene)]
+            + scene.sun_radiance_host.tolist() + [float(shadow_bias)],
+            np.float32), scene.device)
     return _cached(scene, f"sun {float(shadow_bias)!r}",
                    (scene.sun_dir, scene.sun_radiance), make)
 

@@ -40,6 +40,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from dsrt_tpu_torch.device import to_device
 from dsrt_tpu_torch.models.materials import (DIELECTRIC, DIFFUSE_LIGHT,
                                              LAMBERTIAN, METAL)
 from dsrt_tpu_torch.exec_opts import OPTS
@@ -63,13 +64,19 @@ MAX_MED = 4
 MAX_LIGHTS = 8
 
 
-def sun_direction(scene) -> V3:
+def sun_ldir_host(scene) -> V3:
     """Ldir = normalize(-sun_dir): the reference kernel negates the
-    documented ISS->Sun direction.  Computed on the host, returned as
-    0-dim tensors on the scene's device (the kernel gets the same bits)."""
-    sd = scene.sun_dir.detach().to("cpu", torch.float32)
-    ldir = normalize(V3(-sd[0], -sd[1], -sd[2]))
-    return V3(*(c.to(scene.device) for c in ldir))
+    documented ISS->Sun direction.  0-dim float32 tensors on the CPU,
+    from the scene's host copy of sun_dir (`Scene.sun_dir_host`)."""
+    sd = torch.from_numpy(scene.sun_dir_host)
+    return normalize(V3(-sd[0], -sd[1], -sd[2]))
+
+
+def sun_direction(scene) -> V3:
+    """`sun_ldir_host` as 0-dim tensors on the scene's device (the kernel
+    gets the same bits), in one copy (`to_device`)."""
+    return V3(*to_device(torch.stack(list(sun_ldir_host(scene))),
+                         scene.device).unbind())
 
 
 def build_onb(n: V3):

@@ -23,7 +23,7 @@ from dsrt_tpu_torch.ops.path_kernel import (_cached, _i32, _ptr,
                                             pixel_list)
 from dsrt_tpu_torch.ops.shade import (MAX_LIGHTS, MAX_MED, MAX_SPH,
                                       check_scope, render_samples,
-                                      sun_direction)
+                                      sun_ldir_host)
 
 LAUNCHES = {"dsrt_sphere_render": 0}
 # floats in the parameter vector: spheres (8 each), media (15 each),
@@ -108,7 +108,7 @@ def _pack_scene(scene, shadow_bias: float) -> torch.Tensor:
         lit[:nl, 0:3] = host(scene.sph_center)[li]
         lit[:nl, 3] = host(scene.sph_radius)[li]
     sun = np.zeros(8, np.float32)
-    sun[0:3] = [float(c) for c in sun_direction(scene)]
+    sun[0:3] = [float(c) for c in sun_ldir_host(scene)]
     sun[3:6] = host(scene.sun_radiance)
     sun[6] = shadow_bias
     flat = np.concatenate([sph.ravel(), med.ravel(), lit.ravel(),

@@ -298,3 +298,46 @@ def test_path_kernel_deep_stack_matches_plain_version(cuda):
     acc_k, n_k = path_kernel.path_render(scene, cam, cfg)
     acc_p, n_p = path_kernel.path_render_plain(scene, cam, cfg, 2)
     assert torch.equal(acc_k, acc_p) and int(n_k) == int(n_p)
+
+
+def test_frame_inputs_on_the_card_wait_for_nothing(cuda):
+    """The driver's frames at Run A's settings on a 160x90 frame: on the
+    card each camera field, the camera vector and the path kernel's sun
+    vector carry the CPU path's bits, and frame_inputs plus
+    render_frame_async over two frames, the second issued while the
+    first is in flight, make no host-device synchronisation; nor at Run
+    B's 1000 spp in 8 chunk launches a frame."""
+    import os
+    import chip_smoke
+    from dsrt_tpu_torch import driver
+    from dsrt_tpu_torch.utils.pose import read_pose_file
+    from dsrt_tpu_torch.utils.timing import StageTimer
+    from dsrt_tpu_torch.utils.transform import pose_to_frame
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    poses = read_pose_file(os.path.join(root, "portbench", "data",
+                                        "poses99.txt"))
+    frames = [pose_to_frame(poses[i]) for i in (93, 94, 0, 49, 98)]
+    base = ["--width", "160", "--height", "90", "--standin_detail", "12",
+            "--standin_tex", os.path.join(root, "misc", "iss_standin.png")]
+    args = driver.build_parser().parse_args(base + ["--spp", "250"])
+    scene = driver.build_scene(args, StageTimer(), cuda)
+    host = scene.to("cpu")
+    cpu = torch.device("cpu")
+    for frame in frames:
+        s, cam = driver.frame_inputs(args, scene, frame, cuda)
+        s_h, cam_h = driver.frame_inputs(args, host, frame, cpu)
+        for f in ("origin", "lower_left", "horizontal", "vertical", "u",
+                  "v", "w", "lens_radius", "vector"):
+            got, want = getattr(cam, f), getattr(cam_h, f)
+            if f == "vector":
+                got, want = got(), want()
+            assert torch.equal(got.cpu().view(torch.int32),
+                               want.view(torch.int32)), f
+        assert torch.equal(
+            path_kernel.sun_vector(s, 1e-3).cpu().view(torch.int32),
+            path_kernel.sun_vector(s_h, 1e-3).view(torch.int32))
+    assert chip_smoke.issue_syncs(args, scene, frames[:2], cuda) == 0
+    args_b = driver.build_parser().parse_args(
+        base + ["--spp", "1000",
+                "--dispatch_rays", str(chip_smoke.RDV_SYNC_RUN_B_RAYS)])
+    assert chip_smoke.issue_syncs(args_b, scene, frames[:2], cuda) == 0
