@@ -1,13 +1,20 @@
 """Faults planted in the timed path, to show that the check catches them.
 
-Each wraps the program's `driver.render_frame_async`, the call that issues
-every frame of the window:
+The render's faults wrap the program's `driver.render_frame_async`, the
+call that issues every frame of the window:
 
 - `stale`: every frame returns the first frame issued (a step that
   returns its state unchanged);
 - `half`: half the samples, the mean taken over them (half of the batch
   left out);
 - `altered`: the frame's red channel altered by one where it is made.
+
+The upscale stage's faults wrap the program's `models.esrgan.upscale_u8`,
+the call that upscales every frame:
+
+- `upstale`: every output is the first frame's;
+- `bicubic`: the stage replaced by the program's bicubic upsampler;
+- `noblock`: the last RRDB of the network skipped.
 
 `python3 -m portbench.run ... --fault <name>` runs a cell with one of
 them planted; benchmark runs never do.
@@ -46,10 +53,46 @@ def altered(orig):
     return issue
 
 
-FAULTS = {"stale": stale, "half": half, "altered": altered}
+def upstale(orig):
+    held = []
+
+    def upscale(*a, **k):
+        held.append(orig(*a, **k))
+        return held[0]
+    return upscale
+
+
+def bicubic(orig):
+    def upscale(net, img_u8, *a, **k):
+        from dsrt_tpu_torch.scripts.upsample import upsample_torch
+        return upsample_torch(img_u8, net.scale,
+                              next(net.parameters()).device)
+    return upscale
+
+
+def noblock(orig):
+    def upscale(net, *a, **k):
+        body = net.body
+        net.body = body[:-1]
+        try:
+            return orig(net, *a, **k)
+        finally:
+            net.body = body
+    return upscale
+
+
+# name -> (module, function wrapped, fault)
+FAULTS = {"stale": ("driver", "render_frame_async", stale),
+          "half": ("driver", "render_frame_async", half),
+          "altered": ("driver", "render_frame_async", altered),
+          "upstale": ("models.esrgan", "upscale_u8", upstale),
+          "bicubic": ("models.esrgan", "upscale_u8", bicubic),
+          "noblock": ("models.esrgan", "upscale_u8", noblock)}
 
 
 def plant(name: str) -> None:
-    """Wrap the program's frame issue with the fault `name`."""
-    from dsrt_tpu_torch import driver
-    driver.render_frame_async = FAULTS[name](driver.render_frame_async)
+    """Wrap the program's function that the fault `name` breaks."""
+    import importlib
+    mod_name, attr, fault = FAULTS[name]
+    mod = importlib.import_module(f"dsrt_tpu_torch.{mod_name}")
+    setattr(mod, attr, fault(getattr(mod, attr)))

@@ -4,13 +4,18 @@ Set-up (what `setup_s` measures, from process start): import the
 program, make the stand-in mesh and read the texture (the benchmark's own
 inputs), compile the scene with the program's SceneBuilder as the driver
 does (SBVH, sun on, the configuration's sun radiance, the run's seed),
-and one warm-up call of the driver at the cell's frame size and spp.
+where the configuration has an `upscale` stage its seeded weights
+(portbench/weights.py, a checkpoint in the run's directory), and one
+warm-up call of the driver at the cell's frame size and spp, stage and
+all.
 
 The window: whole calls of `dsrt_tpu_torch.driver.run(args, scene=...)`,
 the CLI's own frame loop (`--mode auto`, pipelined), each with one pose
 file of the cell's traffic and a fresh output directory, until
-`--seconds` have passed; no call is cut short.  Each PNG is stamped from
-outside the program by its modification time, read after the call.
+`--seconds` have passed; no call is cut short.  Each frame is stamped
+from outside the program by its final output's modification time, read
+after the call: the raw PNG, or with a stage the stage's PNG in
+`<output_dir><upscale.output_suffix>`.
 
 After the window: the peak device memory, then the program's state is
 let go and the check (portbench/check.py) judges a sample of the PNGs.
@@ -29,6 +34,7 @@ import time
 from portbench import check, pngio, standin
 from portbench import trace as tracemod
 from portbench import traffic as trafficmod
+from portbench import weights as weightsmod
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "dsrt_tpu", "bench", "benchmarks")
 
@@ -67,7 +73,13 @@ def program_mesh(mesh: standin.Mesh):
 
 
 def driver_args(cfg: dict, pose_file: str, out_dir: str, tsv: str,
-                seed: int, device: str) -> list:
+                seed: int, device: str, weights: str | None = None) -> list:
+    """The driver's arguments for one call; a configuration's `upscale`
+    stage appends its `driver_flags`, with `{weights}` (the seeded
+    checkpoint) and `{seed}` filled in."""
+    up = cfg.get("upscale")
+    extra = ([f.format_map({"weights": weights, "seed": seed})
+              for f in up["driver_flags"]] if up else [])
     return ["--input_txt", pose_file, "--output_dir", out_dir,
             "--width", str(cfg["width"]), "--height", str(cfg["height"]),
             "--spp", str(cfg["spp"]), "--max_depth", str(cfg["max_depth"]),
@@ -75,21 +87,31 @@ def driver_args(cfg: dict, pose_file: str, out_dir: str, tsv: str,
             "--sun_radiance", *(str(r) for r in cfg["sun_radiance"]),
             "--seed", str(seed), "--bvh", cfg["bvh"], "--mode", cfg["mode"],
             "--dispatch_rays", str(cfg["dispatch_rays"]),
-            "--timings_tsv", tsv, "--device", device]
+            "--timings_tsv", tsv, "--device", device, *extra]
+
+
+def final_dir(cfg: dict, out_dir: str) -> str:
+    """Where the frames the user gets are written: the raw PNGs' directory,
+    or with a stage the stage's."""
+    up = cfg.get("upscale")
+    return out_dir + up["output_suffix"] if up else out_dir
 
 
 class Frame:
-    __slots__ = ("call", "pose", "line", "png", "wait_s")
+    """One frame of a call: its raw PNG, its final output (the raw PNG
+    where there is no stage) and the wait for that final output."""
+    __slots__ = ("call", "pose", "line", "png", "final", "wait_s")
 
-    def __init__(self, call, pose, line, png, wait_s):
+    def __init__(self, call, pose, line, png, wait_s, final=None):
         self.call, self.pose, self.line = call, pose, line
         self.png, self.wait_s = png, wait_s
+        self.final = png if final is None else final
 
 
 class Run:
     """What a window left for the metric readers: `frames` (Frame, in
-    order; wait_s None where no PNG came), `window_s`, `tsv` [(stage,
-    seconds)] of every call, `trace` (portbench.trace.Trace or None),
+    order; wait_s None where no final output came), `window_s`, `tsv`
+    [(stage, seconds)] of every call, `trace` (portbench.trace.Trace or None),
     `setup_s`, `scene_compile_s`, `calls`, and `setup_phases`, the
     seconds of each part of set-up (for the record, not a metric)."""
 
@@ -105,7 +127,8 @@ class Run:
         return sum(f.wait_s is not None for f in self.frames)
 
 
-def _call(driver, scene, cfg, lines, picks, seed, device, work, k, log):
+def _call(driver, scene, cfg, lines, picks, seed, device, work, k, log,
+          weights=None):
     """One driver call over the poses `picks`; returns its Frames and TSV
     rows."""
     d = os.path.join(work, f"call{k}")
@@ -116,20 +139,23 @@ def _call(driver, scene, cfg, lines, picks, seed, device, work, k, log):
         fh.write("".join(lines[i] for i in picks))
     tsv = os.path.join(d, "timings.tsv")
     args = driver.build_parser().parse_args(
-        driver_args(cfg, pose_file, out, tsv, seed, device))
+        driver_args(cfg, pose_file, out, tsv, seed, device, weights))
     t0 = time.time_ns()
     with contextlib.redirect_stdout(log):
         rc = driver.run(args, scene=scene)
     if rc != 0:
         raise RuntimeError(f"driver.run returned {rc}")
     frames, prev = [], t0
+    fin = final_dir(cfg, out)
     for j, i in enumerate(picks):
-        png = os.path.join(out, f"frame_{j:04d}.png")
+        name = f"frame_{j:04d}.png"
+        final = os.path.join(fin, name)
         wait = None
-        if os.path.exists(png):
-            m = os.stat(png).st_mtime_ns
+        if os.path.exists(final):
+            m = os.stat(final).st_mtime_ns
             wait, prev = (m - prev) * 1e-9, m
-        frames.append(Frame(k, i, lines[i], png, wait))
+        frames.append(Frame(k, i, lines[i], os.path.join(out, name), wait,
+                            final))
     rows = []
     with open(tsv) as fh:
         next(fh)
@@ -141,10 +167,11 @@ def _call(driver, scene, cfg, lines, picks, seed, device, work, k, log):
 
 def run_cell(bench, cell_name: str, seed: int, seconds: float, trace: bool,
              device: str = "cuda", t0: float | None = None,
-             control: bool = False):
+             control: str | None = None):
     """Run one cell; returns (result line as a dict, Run, the check's
     verdict).  `t0`: time.perf_counter() at process start (set-up counts
-    from there; the call's start when None)."""
+    from there; the call's start when None).  `control`: one of
+    check.CONTROLS put in the program's place by the check."""
     t0 = time.perf_counter() if t0 is None else t0
     import torch
     from dsrt_tpu_torch import driver
@@ -176,10 +203,17 @@ def run_cell(bench, cell_name: str, seed: int, seconds: float, trace: bool,
 
     work = tempfile.mkdtemp(prefix="portbench-")
     try:
+        wpath = None
+        if "upscale" in cfg:
+            wpath = weightsmod.write(cfg["upscale"], seed, device,
+                                     os.path.join(work, "upscale.pth"))
+            if device == "cuda":
+                torch.cuda.synchronize()
+            marks.append(("upscale_weights", time.perf_counter()))
         with open(os.path.join(work, "driver.log"), "w") as log:
             first = trafficmod.call_poses(mix, seed, 0)[:1]
             _call(driver, scene, cfg, lines, first, seed, device, work,
-                  "warmup", log)
+                  "warmup", log, wpath)
             if device == "cuda":
                 torch.cuda.synchronize()
             marks.append(("warmup_call", time.perf_counter()))
@@ -204,7 +238,7 @@ def run_cell(bench, cell_name: str, seed: int, seconds: float, trace: bool,
                     with rf(tracemod.CALL):
                         frames, rows = _call(driver, scene, cfg, lines, picks,
                                              seed, device, work, run.calls,
-                                             log)
+                                             log, wpath)
                     run.frames += frames
                     run.tsv += rows
                     run.calls += 1
@@ -228,8 +262,9 @@ def run_cell(bench, cell_name: str, seed: int, seconds: float, trace: bool,
         gc.collect()
         if device == "cuda":
             torch.cuda.empty_cache()
-        verdict = check.judge(cfg, [(f.line, f.png) for f in run.frames],
-                              mesh, texture, seed, device, control=control)
+        verdict = check.judge(
+            cfg, [(f.line, f.png, f.final) for f in run.frames], mesh,
+            texture, seed, device, control=control, weights=wpath)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

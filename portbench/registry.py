@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import importlib.util
 import json
+import shutil
 from pathlib import Path
 
 PKG = "portbench"
@@ -78,3 +79,29 @@ class Bench:
         mod = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(mod)
         return mod.read
+
+
+def copy_with_cell(dest, cfg: dict, mix_name: str, mix: dict, cell: str,
+                   like: str) -> Path:
+    """A copy of the benchmark under `dest`/bench (BENCHMARK.json and
+    portbench without its tests) with, added as files and entries, the
+    configuration `cfg` (named by its "name"), the traffic mix `mix`
+    named `mix_name` and the cell `cell` over them, which reports the
+    end-to-end metrics that the cell `like` reports."""
+    root = Path(dest) / "bench"
+    shutil.copytree(REPO / PKG, root / PKG,
+                    ignore=shutil.ignore_patterns("__pycache__", "tests"))
+    spec = json.loads((REPO / "BENCHMARK.json").read_text())
+    name = cfg["name"]
+    (root / PKG / "configs" / f"{name}.json").write_text(json.dumps(cfg))
+    (root / PKG / "traffic" / f"{mix_name}.json").write_text(json.dumps(mix))
+    spec["configs"].append({"name": name, "source": "test",
+                            "file": f"{PKG}/configs/{name}.json",
+                            "reduced": [], "why": "test"})
+    spec["workloads"].append({"name": cell, "config": name,
+                              "traffic": mix_name, "chips": 1, "why": "test"})
+    for m in spec["end_to_end"]:
+        if like in m.get("workloads", []):
+            m["workloads"].append(cell)
+    (root / "BENCHMARK.json").write_text(json.dumps(spec))
+    return root

@@ -11,10 +11,11 @@ metrics, or with --trace 1 its per-layer metrics), `device`, with
 beside its limit (also the last lines on standard error).  Without a
 card, with fewer cards than the cell asks for, or with the JAX stack or
 the JAX package loaded once the window has closed, it prints no result
-and exits with another code than 0.  `--control 1` runs the check's
-control instead of judging the program's PNGs, and `--fault <name>`
-plants one of portbench/faults.py's faults in the timed path; neither is
-part of a benchmark run.
+and exits with another code than 0.  `--control 1` (the reference in
+bfloat16) or `--control tf32` (an upscale stage's reference with TF32
+on) runs one of the check's controls instead of judging the program's
+outputs, and `--fault <name>` plants one of portbench/faults.py's faults
+in the timed path; neither is part of a benchmark run.
 """
 
 from __future__ import annotations
@@ -25,7 +26,9 @@ import sys
 import time
 import traceback
 
-from portbench import harness
+from portbench import faults, harness
+
+CONTROLS = {"0": None, "1": "bf16", "tf32": "tf32"}
 
 
 def main(argv=None) -> int:
@@ -34,8 +37,8 @@ def main(argv=None) -> int:
     p.add_argument("--seed", type=int, required=True)
     p.add_argument("--seconds", type=float, required=True)
     p.add_argument("--trace", type=int, choices=(0, 1), default=0)
-    p.add_argument("--control", type=int, choices=(0, 1), default=0)
-    p.add_argument("--fault", choices=("stale", "half", "altered"))
+    p.add_argument("--control", choices=sorted(CONTROLS), default="0")
+    p.add_argument("--fault", choices=sorted(faults.FAULTS))
     args = p.parse_args(argv)
     if args.seed < 0:
         p.error("--seed must be a whole number >= 0")
@@ -51,11 +54,10 @@ def main(argv=None) -> int:
                   f"found {torch.cuda.device_count()}", file=sys.stderr)
             return 2
         if args.fault:
-            from portbench import faults
             faults.plant(args.fault)
         result, run, verdict = harness.run_cell(
             bench, args.workload, args.seed, args.seconds, bool(args.trace),
-            t0=t0, control=bool(args.control))
+            t0=t0, control=CONTROLS[args.control])
     except Exception:
         traceback.print_exc()
         return 1

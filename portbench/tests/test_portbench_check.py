@@ -83,7 +83,7 @@ def test_sound_run_is_correct(tiny):
 
 def test_control_is_not_correct(tiny):
     res, _, verdict = harness.run_cell(tiny, tinybench.TINY, 11, 0.5, False,
-                                       device="cpu", control=True)
+                                       device="cpu", control="bf16")
     assert res["correct"] is False
     assert verdict["numbers"]["px_mismatch_pct"] > \
         verdict["limits"]["px_mismatch_pct"]

@@ -14,7 +14,8 @@ from portbench.registry import REPO
 PKG = REPO / "portbench"
 FORBIDDEN = {"jax", "jaxlib", "flax", "dsrt_tpu", "bench", "benchmarks"}
 # the reference side: what decides `correct` apart from the program's PNGs
-REFERENCE = ["reference", "poses", "standin", "pngio", "check"]
+REFERENCE = ["reference", "reference_esrgan", "weights", "poses", "standin",
+             "pngio", "check"]
 
 
 def imports(path: Path) -> set:

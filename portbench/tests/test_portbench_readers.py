@@ -41,6 +41,8 @@ def canned_run():
     run.tsv = [("render", 0.2), ("encode", 0.01), ("render", 0.3),
                ("encode", 0.03), ("render", 0.1), ("encode", 0.02),
                ("render", 0.2), ("encode", 0.02)]
+    run.tsv += [("inputs", 0.001), ("issue", 0.003), ("launch", 0.002),
+                ("wait", 0.004)] * 4 + [("run", 3.5)]
     return run
 
 
@@ -69,6 +71,10 @@ EXPECT = {
     "path_kernel.device_ms": 5.0 / 4,
     "path_kernel.launches": 2 / 4,
     "device.idle_share": 100.0 * (1 - 0.0059 / 0.010),
+    "driver.inputs_ms": 4.0 / 4,
+    "driver.wait_ms": 16.0 / 4,
+    "render.host_ms": 12.0 / 4,
+    "path_kernel.wrapper_ms": 8.0 / 4,
 }
 
 
@@ -90,3 +96,52 @@ def test_trace_readers_give_nothing_without_a_trace(name):
     run = canned_run()
     run.trace = None
     assert Bench().reader(name)(run) is None
+
+
+def span_events():
+    """A driver call whose program spans `issue` > `launch` and `upscale`
+    launch kernels that run after the host has left the span."""
+    host, other = {"pid": 1, "tid": 7}, {"pid": 1, "tid": 8}
+
+    def x(cat, name, ts, dur, corr=None, where=host):
+        e = {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur,
+             **where}
+        if corr is not None:
+            e["args"] = {"correlation": corr}
+        return e
+    dev = {"pid": 0, "tid": 9}
+    return [
+        x("user_annotation", tracemod.WINDOW, 1000.0, 20000.0),
+        x("user_annotation", tracemod.CALL, 1000.0, 19000.0),
+        x("user_annotation", "run", 1100.0, 18000.0),
+        x("user_annotation", "issue", 2000.0, 1000.0),
+        x("user_annotation", "launch", 2100.0, 400.0),
+        x("cuda_runtime", "cudaLaunchKernel", 2200.0, 10.0, 7),
+        x("cuda_runtime", "cudaMemcpyAsync", 2700.0, 10.0, 8),
+        x("user_annotation", "upscale", 9000.0, 500.0),
+        x("cuda_driver", "cuLaunchKernel", 9100.0, 5.0, 9),
+        x("cuda_driver", "cuLaunchKernel", 9200.0, 5.0, 10),
+        x("cuda_runtime", "cudaLaunchKernel", 15000.0, 5.0, 11),
+        # another thread inside `launch`'s time: not the span's
+        x("cuda_runtime", "cudaLaunchKernel", 2300.0, 5.0, 12, other),
+        # the harness's own spans are not the program's
+        x("cuda_runtime", "cudaLaunchKernel", 19500.0, 5.0, 13),
+        x("kernel", K, 3000.0, 4000.0, 7, dev),
+        x("gpu_memcpy", "Memcpy DtoH", 7000.0, 500.0, 8, dev),
+        x("kernel", "conv", 9600.0, 2000.0, 9, dev),
+        x("kernel", "lrelu", 11600.0, 1000.0, 10, dev),
+        x("kernel", "tonemap", 15100.0, 300.0, 11, dev),
+        x("kernel", "other", 15500.0, 200.0, 12, dev),
+        x("kernel", "tail", 19600.0, 100.0, 13, dev),
+    ]
+
+
+def test_span_ops_count_kernels_to_the_span_that_launched_them():
+    tr = tracemod.reduce(span_events())
+    assert set(tr.span_ops) == {"launch", "issue", "upscale", "run"}
+    assert tr.span_ops["launch"] == (pytest.approx(0.004), 1)
+    assert tr.span_ops["issue"] == (pytest.approx(0.0005), 1)
+    assert tr.span_ops["upscale"] == (pytest.approx(0.003), 2)
+    assert tr.span_ops["run"] == (pytest.approx(0.0003), 1)
+    assert sum(n for _, n in tr.span_ops.values()) == 5
+    assert tracemod.reduce(canned_events()).span_ops == {}

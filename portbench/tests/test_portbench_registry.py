@@ -43,7 +43,9 @@ def test_per_layer_metrics_follow_what_they_move(cell):
     assert {m["name"] for m in layer} == {
         f"{q}.{short}" for q in ("driver.encode_ms", "driver.render_stage_ms",
                                  "path_kernel.device_ms",
-                                 "path_kernel.launches", "device.idle_share")
+                                 "path_kernel.launches", "device.idle_share",
+                                 "driver.inputs_ms", "driver.wait_ms",
+                                 "render.host_ms", "path_kernel.wrapper_ms")
     } | {"scene.compile_s"}
 
 
