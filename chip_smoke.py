@@ -54,7 +54,11 @@ pipeline's two ends (phases 19-20): the RRDBNet-23 x4 upscaler on random
 weights from a seed, on the flagship frame (tiles on the card against a
 CPU copy of the module, x4 and x2; the whole frame's batched tiles
 against one tile at a time; its time, peak memory and bound, and with
-TF32 for the record), and the user's whole path: the orbit CLI on the
+TF32 for the record), the dense blocks' conv kernel ("19 dense": each
+block's output and the frame's u8 against its plain version on the card,
+widths it does not take refused, a block's time against its bound, the
+plain version and cuDNN with torch.cat, and the trunk's share of the
+frame's device time), and the user's whole path: the orbit CLI on the
 card (at its default span against the same CLI on the host, its Kepler
 solve against NumPy's) and its poses through the driver with --upscale.
 Then the sharded renders (phase 21, dsrt_tpu_torch/parallel/): a
@@ -148,6 +152,12 @@ ESRGAN_SEED = 0
 ESRGAN_TILE = 128
 ESRGAN_OVERLAP = 8
 H100_TF32_FLOPS = 494.7e12
+# the dense blocks' conv kernel: its FP32 peak, the batch of images (h, w)
+# that its checks run on (edge tiles both ways, padding per image), and
+# the tile batch of the rdv_a_x4 cell (800x450 on the 128 / 8 grid)
+H100_FP32_FLOPS = 67e12
+DENSE_CHECK = (3, 90, 100)
+DENSE_TILES = 28
 ORBIT_SPAN = ("1", "0.5")
 # the orbit CLI's default span (--time 600 --dt 1) and the tolerances of
 # its card path: pose components [m], eccentric anomaly [rad], position
@@ -279,8 +289,9 @@ def register_counts(log: str) -> dict:
     """Registers per kernel from nvcc's -Xptxas -v output: the path
     kernel's instances as "path_render_kernel<M>" (M its template bits),
     the traversal kernel's as "traverse_kernel<Q,W>" (Q the query: 0
-    closest, 1 any hit, 2 sun; W 1 for the 8-ary walk), the others by
-    name."""
+    closest, 1 any hit, 2 sun; W 1 for the 8-ary walk), the dense-block
+    conv's as "rdb_conv_kernel<CG,WR,WC>" (CG groups of 8 output
+    channels, a block of WR x WC warps), the others by name."""
     import re
     regs, name = {}, None
     for ln in log.splitlines():
@@ -289,9 +300,13 @@ def register_counts(log: str) -> dict:
             mangled = m.group(1)
             inst = re.search(r"path_render_kernelILj(\d+)E", mangled)
             walk = re.search(r"traverse_kernelILi(\d)ELb(\d)E", mangled)
+            dense = re.search(r"rdb_conv_kernelILi(\d+)ELi(\d+)ELi(\d+)E",
+                              mangled)
             name = (f"path_render_kernel<{inst.group(1)}>" if inst else
                     f"traverse_kernel<{walk.group(1)},{walk.group(2)}>"
                     if walk else
+                    "rdb_conv_kernel<{},{},{}>".format(*dense.groups())
+                    if dense else
                     "sphere_render_kernel" if "sphere_render_kernel" in
                     mangled else "sphere_list_kernel" if
                     "sphere_list_kernel" in mangled else mangled)
@@ -1834,6 +1849,170 @@ def esrgan_phase(dev, frame: np.ndarray, card: str) -> dict:
                 tf32_vs_fp32=dict(u8_identical=same_t, u8_max_d=dmax_t))
 
 
+def dense_block_phase(dev, frame: np.ndarray, card: str) -> dict:
+    """Phase 19 dense: the dense blocks' conv kernel (ops/rdb_conv.py).
+    (a) Two RRDBs at 64/32 and at 8/4 on DENSE_CHECK images: each dense
+    block's output through the kernel against the plain version on the
+    card (max |d| over max |out|, <= 1e-5).  (b) The frame of phase 5
+    through upscale_u8 (RRDBNet-23 x4, 64/32, seeded as phase 19) with
+    the kernel against the plain trunk: u8 identical >= 99.99%, and the
+    kernel's launches a forward.  (c) Widths the kernel does not take
+    raise on the card.  (d) At the cell's shape (DENSE_TILES x 128 x 128,
+    64/32): each conv's and a whole dense block's time (CUDA-event mean)
+    against its bound (operations at 67 TFLOP/s), the plain version
+    (rdb_conv_plain on the card) and the block module's own forward
+    (cuDNN convs and torch.cat: `library_ms`, which the port never
+    calls); the trunk's device time in a profiled forward of the frame,
+    kernel against the rest."""
+    import functools
+    from unittest import mock
+    from torch.profiler import ProfilerActivity, profile
+    from dsrt_tpu_torch.models import esrgan
+    from dsrt_tpu_torch.ops import build, rdb_conv
+
+    def recorder(conv, outs):
+        def run(src, cin, m, dst, off, mode):
+            conv(src, cin, m, dst, off, mode)
+            if mode != rdb_conv.LRELU:
+                outs.append(dst[..., :m.out_channels].clone())
+        return run
+
+    # (a) each block's output, kernel against plain, on the card
+    checks = {}
+    n, h, w = DENSE_CHECK
+    for nf, gc in ((64, 32), (8, 4)):
+        torch.manual_seed(ESRGAN_SEED)
+        body = torch.nn.Sequential(*[esrgan.RRDB(nf, gc) for _ in range(2)])
+        with torch.no_grad():
+            for m in body.modules():
+                if isinstance(m, torch.nn.Conv2d):
+                    m.bias.normal_(0.0, 0.05)
+        body = body.to(dev)
+        feat = torch.randn(n, nf, h, w, device=dev)
+        got, want = [], []
+        with torch.inference_mode(), esrgan.fp32_convs():
+            esrgan.dense_trunk(body, feat, recorder(rdb_conv.rdb_conv, got))
+            esrgan.dense_trunk(body, feat,
+                               recorder(rdb_conv.rdb_conv_plain, want))
+        torch.cuda.synchronize()
+        rel = [float((a - b).abs().max() / b.abs().max())
+               for a, b in zip(got, want)]
+        checks[f"{nf}/{gc}"] = rel
+        phase("19 dense", f"{card}; (a) {nf}/{gc}, {n} images of {h}x{w}: "
+                          f"each block's output, kernel against plain on "
+                          f"the card, max |d| / max |out| "
+                          f"{', '.join(f'{r:.3g}' for r in rel)} "
+                          f"(tolerance <= 1e-5)")
+        require(len(rel) == 6 and max(rel) <= 1e-5,
+                f"dense block kernel at {nf}/{gc} disagrees with plain")
+    # (b) the frame through the kernel and through the plain trunk
+    params = lively_params(np.random.default_rng(ESRGAN_SEED), 4)
+    net = esrgan.rrdbnet_from_params(params, 4, device=dev)
+    plain_trunk = functools.partial(esrgan.dense_trunk,
+                                    conv=rdb_conv.rdb_conv_plain)
+    rdb_conv.reset_launches()
+    up = esrgan.upscale_u8(net, frame)
+    launches = rdb_conv.LAUNCHES["dsrt_rdb_conv"]
+    with mock.patch.object(esrgan, "dense_trunk", plain_trunk):
+        up_plain = esrgan.upscale_u8(net, frame)
+    same, dmax = u8_agreement(up, up_plain)
+    want_launches = 15 * len(net.body)
+    phase("19 dense", f"{card}; (b) x4 frame {frame.shape[1]}x"
+                      f"{frame.shape[0]}, kernel against the plain trunk: "
+                      f"u8 identical {same:.5%}, max |d| {dmax}; "
+                      f"{launches} launches a forward ({want_launches} "
+                      f"wanted) (tolerance >= 99.99%)")
+    require(same >= 0.9999 and launches == want_launches,
+            "the frame through the dense kernel")
+    # (c) widths the kernel does not take
+    wide = esrgan.RRDB(128, 32).to(dev)
+    raised = ""
+    try:
+        with torch.inference_mode():
+            esrgan.dense_trunk(torch.nn.Sequential(wide),
+                               torch.zeros(1, 128, 8, 8, device=dev))
+    except ValueError as e:
+        raised = str(e)
+    phase("19 dense", f"(c) 128/32 on the card raises: {raised[:120]!r}")
+    require("dsrt_rdb_conv" in raised, "a width the kernel does not take")
+    # (d) times at the cell's shape
+    nf, gc, hw = 64, 32, ESRGAN_TILE
+    rdb = net.body[0].rdb1
+    width = nf + 4 * gc
+    buf = torch.randn(DENSE_TILES, hw, hw, width, device=dev)
+    out = torch.empty_like(buf)
+    pix = DENSE_TILES * hw * hw
+    convs = [(nf + i * gc, getattr(rdb, f"conv{i + 1}"), buf, nf + i * gc,
+              rdb_conv.LRELU) for i in range(4)]
+    convs.append((width, rdb.conv5, out, 0, rdb_conv.RESIDUAL))
+
+    def block(conv):
+        for cin, m, dst, off, mode in convs:
+            conv(buf, cin, m, dst, off, mode)
+
+    x = buf[..., :nf].permute(0, 3, 1, 2).contiguous()
+    per_conv = []
+    with torch.inference_mode(), esrgan.fp32_convs():
+        for cin, m, dst, off, mode in convs:
+            ms = event_ms(lambda: rdb_conv.rdb_conv(buf, cin, m, dst, off,
+                                                    mode), 20)
+            flops = 2 * 9 * pix * cin * m.out_channels
+            per_conv.append(dict(cin=cin, cout=m.out_channels, ms=ms,
+                                 bound_ms=flops / H100_FP32_FLOPS * 1e3,
+                                 peak_share=flops / H100_FP32_FLOPS * 1e3
+                                 / ms))
+        kernel_ms = event_ms(lambda: block(rdb_conv.rdb_conv), 20)
+        plain_ms = event_ms(lambda: block(rdb_conv.rdb_conv_plain), 5)
+        library_ms = event_ms(lambda: rdb(x), 10)
+    flops = sum(2 * 9 * pix * c["cin"] * c["cout"] for c in per_conv)
+    bound_ms = flops / H100_FP32_FLOPS * 1e3
+    phase("19 dense", f"{card}; (d) a dense block at {DENSE_TILES}x{hw}x"
+                      f"{hw}, 64/32: kernel {kernel_ms:.3f} ms, bound "
+                      f"{bound_ms:.3f} ms ({flops / 1e12:.3f} TFLOP at 67 "
+                      f"TFLOP/s; {bound_ms / kernel_ms:.1%} of FP32 peak); "
+                      f"plain {plain_ms:.3f} ms; library (cuDNN + "
+                      f"torch.cat) {library_ms:.3f} ms; per conv "
+                      + ", ".join(f"{c['cin']}->{c['cout']} {c['ms']:.3f} "
+                                  f"ms ({c['peak_share']:.1%})"
+                                  for c in per_conv))
+    # the frame's forward: the trunk's kernel time against the rest
+    tiles, _ = esrgan.tile_grid(frame.astype(np.float32) / 255.0,
+                                ESRGAN_TILE, ESRGAN_OVERLAP)
+    esrgan.forward_tiles(net, tiles, u8=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        esrgan.forward_tiles(net, tiles, u8=True)
+        torch.cuda.synchronize()
+    ops = sorted(((e.key, getattr(e, "self_device_time_total", 0) / 1e3,
+                   e.count) for e in prof.key_averages()),
+                 key=lambda t: -t[1])
+    ops = [o for o in ops if o[1] > 0]
+    dense_ms = sum(t for k, t, _ in ops if "rdb_conv_kernel" in k)
+    total_ms = sum(t for _, t, _ in ops)
+    trunk_flops = flops * len(net.body) * 3 // DENSE_TILES * len(tiles)
+    trunk_share = (trunk_flops / H100_FP32_FLOPS / dense_ms * 1e3
+                   if dense_ms else float("nan"))
+    phase("19 dense", f"{card}; (d) the frame's forward ({len(tiles)} "
+                      f"tiles): device {total_ms:.1f} ms, of it the dense "
+                      f"kernel {dense_ms:.1f} ms ({trunk_flops / 1e12:.2f} "
+                      f"TFLOP, {trunk_share:.1%} of FP32 peak); top ops "
+                      + "; ".join(f"{k[:60]} {t:.1f} ms x{c}"
+                                  for k, t, c in ops[:8]))
+    regs = {k: v for k, v in register_counts(build.build_info["log"]).items()
+            if "rdb_conv" in k}
+    log = build.build_info["log"]
+    spills = [ln.strip() for ln in
+              log[log.find("== rdb_conv.cu"):].splitlines()[1:]
+              if "spill" in ln]
+    return dict(card=card, block_rel_err=checks, frame_u8_identical=same,
+                frame_u8_max_d=dmax, launches_a_forward=launches,
+                raises=raised, per_conv=per_conv, ms=kernel_ms,
+                bound_ms=bound_ms, plain_ms=plain_ms, library_ms=library_ms,
+                forward_device_ms=total_ms, forward_dense_ms=dense_ms,
+                forward_top_ops=ops[:12], registers=regs,
+                spill_lines=spills[:3])
+
+
 def pipeline_ends_phase(dev, card: str) -> dict:
     """Phase 20: the user's whole path on the card.  The port's orbit CLI
     runs at its default span on the card and on the host, and the two
@@ -3013,6 +3192,7 @@ def main() -> int:
     # 19-20: the pipeline's two ends, the upscaler and the pose generator
     t0 = time.perf_counter()
     ends = {"esrgan": esrgan_phase(dev, img, card),
+            "dense": dense_block_phase(dev, img, card),
             "pipeline": pipeline_ends_phase(dev, card)}
     with open(os.path.join(OUT, "pipeline_ends.json"), "w") as fh:
         json.dump(ends, fh, indent=1)

@@ -16,9 +16,13 @@ Architecture (public Real-ESRGAN design):
                C_in), output still 4x the unshuffled grid
 
 The JAX package computes every conv with `lax.conv_general_dilated`,
-outside any Pallas kernel; here they are `nn.Conv2d` (cuDNN on the card).
-They run in full FP32: `fp32_convs` scopes the forward to cuDNN with
-TF32 off, since PyTorch's default would run these convs in TF32.
+outside any Pallas kernel.  On the card the trunk's dense blocks run
+through the hand-written FP32 kernel of `ops/rdb_conv.py` on channels-last
+buffers (`dense_trunk`: no concatenation, the leaky ReLUs and residuals
+in the kernel's epilogue); on the CPU they are the modules' own forwards.
+The other convs are `nn.Conv2d` (cuDNN on the card), in full FP32:
+`fp32_convs` scopes the forward to cuDNN with TF32 off, since PyTorch's
+default would run these convs in TF32.
 
 `upscale_tiled` keeps JAX's tile grid and stitch (edge padding, step =
 tile - 2 * overlap, the interior of each tile), and sends the tiles
@@ -39,6 +43,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from dsrt_tpu_torch.device import resolve_device
+from dsrt_tpu_torch.ops import rdb_conv
 from dsrt_tpu_torch.utils import timing
 
 # the part of the free device memory a batch of tiles may take, and the
@@ -157,6 +162,35 @@ class RRDB(nn.Module):
         return x + 0.2 * self.rdb3(self.rdb2(self.rdb1(x)))
 
 
+def dense_trunk(body: nn.Sequential, feat: torch.Tensor,
+                conv=rdb_conv.rdb_conv) -> torch.Tensor:
+    """`body(feat)`, the RRDBs of the trunk, on three channels-last
+    buffers [n, h, w, nf + 4 gc]: a dense block's input x sits in channels
+    [0, nf) of its buffer, conv_i (i = 1..4) reads channels [0, nf + (i -
+    1) gc) and writes its gc channels after them, and conv5 reads all of
+    them and writes the block's output into the next buffer's [0, nf).
+    An RRDB's blocks go from buffer 0 to 1, 1 to 2 and 2 back to 0, where
+    conv5 adds the RRDB's own residual to its input in place.  `conv` is
+    `rdb_conv.rdb_conv` (the kernel on the card) or its plain version.
+    NCHW in and out."""
+    n, nf, h, w = feat.shape
+    if len(body) == 0:
+        return feat
+    gc = body[0].rdb1.conv1.out_channels
+    width = nf + 4 * gc
+    bufs = [feat.new_empty((n, h, w, width)) for _ in range(3)]
+    bufs[0][..., :nf] = feat.permute(0, 2, 3, 1)
+    for rrdb in body:
+        for j, rdb in enumerate((rrdb.rdb1, rrdb.rdb2, rrdb.rdb3)):
+            src, dst = bufs[j], bufs[(j + 1) % 3]
+            for i in range(4):
+                conv(src, nf + i * gc, getattr(rdb, f"conv{i + 1}"), src,
+                     nf + i * gc, rdb_conv.LRELU)
+            conv(src, width, rdb.conv5, dst, 0,
+                 rdb_conv.RRDB_RESIDUAL if j == 2 else rdb_conv.RESIDUAL)
+    return bufs[0][..., :nf].permute(0, 3, 1, 2).contiguous()
+
+
 class RRDBNet(nn.Module):
     """NCHW float in [0, 1] -> NCHW, `scale` x the size."""
 
@@ -183,7 +217,9 @@ class RRDBNet(nn.Module):
         elif self.scale == 1:
             x = F.pixel_unshuffle(x, 4)
         feat = self.conv_first(x)
-        feat = feat + self.conv_body(self.body(feat))
+        trunk = (dense_trunk(self.body, feat) if feat.is_cuda
+                 else self.body(feat))
+        feat = feat + self.conv_body(trunk)
         feat = F.leaky_relu(self.conv_up1(
             F.interpolate(feat, scale_factor=2, mode="nearest")), 0.2)
         feat = F.leaky_relu(self.conv_up2(

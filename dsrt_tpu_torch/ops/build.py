@@ -8,7 +8,8 @@ traverse_kernel.cu: dsrt_traverse, the entry of both traversal kernels
 (`dsrt_traverse` and `dsrt_traverse_sun` in the wrappers' names), and
 dsrt_traverse_occupancy;
 exact_math_check.cu: dsrt_exact_math_check, the card's proof of
-exact_math.cuh) compile, one
+exact_math.cuh; rdb_conv.cu: dsrt_rdb_conv, the upscaler's dense-block
+convs) compile, one
 nvcc process per source, all started together, into objects that one
 more nvcc call links into a shared library with a plain C interface (no
 PyTorch headers, so a build takes seconds):
@@ -18,8 +19,9 @@ PyTorch headers, so a build takes seconds):
     nvcc -shared <objects>                      (link)
 
 `-fmad=false` keeps every a*b+c as a rounded multiply then a rounded add,
-like the plain PyTorch version; fast-math is off so divisions and square
-roots are IEEE.  The library lands in <repo>/build/dsrt_tpu_torch/, named
+like the plain PyTorch version (a kernel that wants a fused multiply-add
+writes `__fmaf_rn`); fast-math is off so divisions and square roots are
+IEEE.  The library lands in <repo>/build/dsrt_tpu_torch/, named
 by a hash of the sources and flags, so an edited source rebuilds.  Every
 pointer and the stream go through ctypes as c_void_p.
 """
@@ -67,6 +69,8 @@ SIGNATURES = {
     "dsrt_traverse": [_P] * 17 + [_I] * 7 + [_F] * 2 + [_P],
     # instance -> resident blocks per SM (negative: a CUDA error)
     "dsrt_traverse_occupancy": [_I],
+    # in, wt, bias, out; n h w cin cs_in cout cs_out mode; stream
+    "dsrt_rdb_conv": [_P] * 4 + [_I] * 8 + [_P],
 }
 
 _lib = None
