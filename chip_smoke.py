@@ -2542,6 +2542,7 @@ def rendezvous_drive(tag: str, poses: str, size) -> dict:
     parameter records and a sun vector, and tools/sequence_stats of the
     run."""
     from dsrt_tpu_torch import driver
+    from dsrt_tpu_torch.models.scene import Scene
     from dsrt_tpu_torch.ops import path_kernel, sphere_kernel
     from dsrt_tpu_torch.ops import traverse as tv
     from dsrt_tpu_torch.tools.sequence_stats import sequence_stats
@@ -2549,18 +2550,19 @@ def rendezvous_drive(tag: str, poses: str, size) -> dict:
     out_dir, log = os.path.join(out, tag), os.path.join(out, f"{tag}.log")
     tsv = os.path.join(out, f"{tag}.tsv")
     made = {"path_params": 0, "sun": 0}
-    cached = path_kernel._cached
+    cached = Scene.cached
 
     def counting(scene, key, sources, make):
         def counted():
-            made[key.split()[0]] += 1
+            if key.split()[0] in made:
+                made[key.split()[0]] += 1
             return make()
         return cached(scene, key, sources, counted)
 
     path_kernel.reset_launches()
     sphere_kernel.reset_launches()
     tv.reset_launches()
-    path_kernel._cached = counting
+    Scene.cached = counting
     try:
         with open(log, "w") as fh, contextlib.redirect_stdout(fh):
             t0 = time.perf_counter()
@@ -2568,7 +2570,7 @@ def rendezvous_drive(tag: str, poses: str, size) -> dict:
                              + ["--timings_tsv", tsv, "--wipe"])
             wall = time.perf_counter() - t0
     finally:
-        path_kernel._cached = cached
+        Scene.cached = cached
     launches = dict(path_kernel.LAUNCHES, **sphere_kernel.LAUNCHES,
                     **tv.LAUNCHES)
     with open(log) as fh:

@@ -14,30 +14,35 @@ a note; `parity`, `wavefront` and `queue` force a renderer.  Wavefront's
 sample slots halve until they divide spp.  `--dispatch_rays` is the
 fused frames' per-launch primary-ray budget (0: never chunk).
 
-Fused and wavefront frames are issued with `render_frame_async` and
+Every mode hands the loop a `render.PendingFrame` (`issue_frame`), and
+`finish_frame` alone waits for it, prints its line (`[frame i] render
+(<label> on <device>) + wait: ...`, with Mrays/s and the exact rays
+where the renderer counts them), encodes it and runs the upscale stage.
+Fused and wavefront frames come from `render_frame_async` and are
 pipelined unless `--no_pipeline`: frame n is issued before frame n-1 is
-waited for and encoded.  On the card nothing in a frame's inputs or
-issue waits for the device (its camera and sun go up in copies that
-queue on the stream), so frame n queues behind frame n-1 and the card
-goes from one to the next while the host encodes; at most two frames
-are on the card.  With `--no_pipeline` each frame is waited for and
-encoded before the next is issued.  The PNG bytes are the same
-either way.  `--profile DIR` writes a
-torch.profiler trace of the first rendered frame to DIR/trace.json.
+finished.  On the card nothing in a frame's inputs or issue waits for
+the device (its camera and sun go up in copies that queue on the
+stream), so frame n queues behind frame n-1 while the host encodes; at
+most two frames are on the card.  A frame complete when issued (the
+other modes, any CPU frame) is finished at once, as is every frame with
+`--no_pipeline`; the PNG bytes are the same either way.  `--profile
+DIR` writes a torch.profiler trace of the first rendered frame to
+DIR/trace.json.
 
 `--timings_tsv PATH` writes the run's spans (utils/timing.py), one row a
 span (`stage`, `duration_ns`, `frame`: the pose-line index i of
 `frame_{i:04d}.png`, -1 outside a frame): `run` (the whole loop, up to
 the TSV), `mesh_load` and `scene_compile` (unless a scene is passed in),
-and per frame `inputs` (`frame_inputs`: camera and sun on the device),
-`issue` (the render call: for fused and wavefront frames
+and per frame, in every mode, `inputs` (`frame_inputs`: camera and sun
+on the device), `issue` (the render call: for fused and wavefront frames
 `render_frame_async`, which returns before the card is done), one
 `launch` a path-kernel call (ops/path_kernel.py `path_render`), `wait`
-(`render.finish`, on an issued frame: with the pipeline, the wait for
-the frame in flight, which `inputs` does not hold), `encode`, and the
-row `render`, from issue to the image on the host, which overlaps the
-encode of the frame before.  While a torch profiler runs, each span but
-`render` is also a `record_function` annotation of the same name.
+(`render.finish`: with the pipeline, the wait for the frame in flight,
+which `inputs` does not hold; about zero for a frame complete when
+issued), `encode`, and the row `render`, from issue to the image on the
+host, which overlaps the encode of the frame before.  While a torch
+profiler runs, each span but `render` is also a `record_function`
+annotation of the same name.
 
 `--upscale` runs the x4 super-resolution stage inside the frame loop, on
 the same device: each frame, once its PNG is encoded, is upscaled from
@@ -114,10 +119,10 @@ from dsrt_tpu_torch.utils.timing import StageTimer, mrays_per_sec
 from dsrt_tpu_torch.utils.transform import pose_to_frame
 from dsrt_tpu_torch.models.scene import SceneBuilder
 from dsrt_tpu_torch.ops.camera import point_camera_at
-from dsrt_tpu_torch.render import (FUSED_DISPATCH_RAYS, finish, fused_kind,
-                                   render_frame, render_frame_adaptive,
-                                   render_frame_async, render_frame_debug,
-                                   render_frame_queue)
+from dsrt_tpu_torch.render import (FUSED_DISPATCH_RAYS, PendingFrame,
+                                   finish, fused_kind, render_frame,
+                                   render_frame_adaptive, render_frame_async,
+                                   render_frame_debug, render_frame_queue)
 
 
 # the JAX driver's TPU execution knobs (dsrt_tpu/driver.py:120-138)
@@ -255,14 +260,6 @@ def resolve_mode(mode: str, scene, cfg) -> str:
     return mode
 
 
-def render(mode: str, scene, cam, cfg):
-    """(u8 image, exact ray count or None) of one parity or queue frame
-    (fused and wavefront frames go through render_frame_async)."""
-    if mode == "queue":
-        return render_frame_queue(scene, cam, cfg), None
-    return render_frame(scene, cam, cfg, with_count=True)
-
-
 def start_profile(device: torch.device):
     """A running torch.profiler session (CPU, and CUDA on the card)."""
     from torch.profiler import ProfilerActivity, profile
@@ -340,18 +337,59 @@ class UpscaleStage:
             self.writer.shutdown()
 
 
-def finish_frame(pending, timer: StageTimer, args, stage) -> None:
-    """Wait for an issued frame, then encode it (and run `stage`, the
-    upscale stage or None, on it)."""
+def issue_frame(args, idx: int, scene, cam, cfg, mesh, budget: int):
+    """(label, PendingFrame) of frame `idx`, by the first that applies:
+    --debug_shade, --shard, --adaptive, then the renderer --mode
+    resolves to.  Fused and wavefront frames come from
+    render_frame_async and may still be on the card; the others are
+    complete."""
+    if args.debug_shade:
+        return "debug", PendingFrame(render_frame_debug(scene, cam, cfg))
+    if mesh is not None:
+        from dsrt_tpu_torch.parallel.render import (
+            render_frame_fused_sharded, render_frame_sharded)
+        over = f" over {mesh.sp}x{mesh.dp} ranks"
+        if args.shard_sp == 1 and fused_kind(scene, cfg):
+            # dp only: every rank runs the megakernel on its pixel shard
+            # (bit-identical to one process)
+            return "fused sharded" + over, PendingFrame(
+                *render_frame_fused_sharded(scene, cam, cfg, mesh,
+                                            with_count=True))
+        return "sharded" + over, PendingFrame(
+            render_frame_sharded(scene, cam, cfg, mesh))
+    if args.adaptive > 0:
+        img, stats = render_frame_adaptive(
+            scene, cam, cfg, tol=args.adaptive,
+            chunk_spp=args.adaptive_chunk or None, with_count=True)
+        print(f"  [frame {idx}] adaptive: mean spp "
+              f"{stats['mean_spp']:.1f}/{cfg.spp} over {stats['rounds']} "
+              "rounds")
+        return "adaptive", PendingFrame(img, stats["rays"])
+    mode = resolve_mode(args.mode, scene, cfg)
+    if mode in ("fused", "wavefront"):
+        return mode, render_frame_async(scene, cam, cfg, mode=mode,
+                                        spp_batch=args.spp_batch,
+                                        budget=budget)
+    if mode == "queue":
+        return mode, PendingFrame(render_frame_queue(scene, cam, cfg))
+    return mode, PendingFrame(*render_frame(scene, cam, cfg, with_count=True))
+
+
+def finish_frame(pending, timer: StageTimer, args, stage, lead: bool):
+    """Wait for a frame, print its line, encode it on the lead rank and
+    run `stage` (the upscale stage or None) on it: the only place the
+    frame loop does any of these."""
     idx, png, frame, t0, label = pending
     with timer.stage("wait", frame=idx):
         img, nrays = finish(frame)
     timer.log("render", t0, frame=idx)   # issue -> on the host
     dt = (timer.now() - t0) * 1e-9
-    print(f"  [frame {idx}] render ({label}) + wait: {dt*1e3:.0f} ms, "
-          f"{mrays_per_sec(nrays, dt):.1f} Mrays/s, {nrays} rays exact")
-    with timer.stage("encode", frame=idx):
-        encode(png, img, timer, args)
+    rays = ("" if nrays is None else
+            f", {mrays_per_sec(nrays, dt):.1f} Mrays/s, {nrays} rays exact")
+    print(f"  [frame {idx}] render ({label}) + wait: {dt*1e3:.0f} ms{rays}")
+    if lead:
+        with timer.stage("encode", frame=idx):
+            encode(png, img, timer, args)
     if stage is not None:
         stage(png, img, idx, timer)
 
@@ -490,7 +528,7 @@ def _render_poses(args, scene, device, mesh, lead: bool,
               else args.dispatch_rays)
     total_start = time.perf_counter()
     rendered = 0
-    pending = None   # the issued frame not yet encoded (pipeline)
+    pending = None   # the issued frame not yet finished (pipeline)
     prof = None
     profiled = not (args.profile and lead)
     for i, pose in enumerate(poses):
@@ -515,74 +553,24 @@ def _render_poses(args, scene, device, mesh, lead: bool,
         if not profiled:
             prof, profiled = start_profile(device), True
         t0 = timer.now()
-        issued = None
         with timer.stage("issue", frame=i):
-            if args.debug_shade:
-                label = "debug"
-                img, nrays = render_frame_debug(frame_scene, cam, cfg), None
-            elif mesh is not None:
-                from dsrt_tpu_torch.parallel.render import (
-                    render_frame_fused_sharded, render_frame_sharded)
-                if args.shard_sp == 1 and fused_kind(frame_scene, cfg):
-                    # dp only: every rank runs the megakernel on its pixel
-                    # shard (bit-identical to one process)
-                    label = "fused sharded"
-                    img, nrays = render_frame_fused_sharded(
-                        frame_scene, cam, cfg, mesh, with_count=True)
-                else:
-                    label = "sharded"
-                    img = render_frame_sharded(frame_scene, cam, cfg, mesh)
-                    nrays = None
-                label += f" over {mesh.sp}x{mesh.dp} ranks"
-            elif args.adaptive > 0:
-                label = "adaptive"
-                img, stats = render_frame_adaptive(
-                    frame_scene, cam, cfg, tol=args.adaptive,
-                    chunk_spp=args.adaptive_chunk or None, with_count=True)
-                nrays = stats["rays"]
-                print(f"  [frame {i}] adaptive: mean spp "
-                      f"{stats['mean_spp']:.1f}/{cfg.spp} over "
-                      f"{stats['rounds']} rounds")
-            else:
-                label = resolve_mode(args.mode, frame_scene, cfg)
-                if label in ("fused", "wavefront"):
-                    issued = render_frame_async(
-                        frame_scene, cam, cfg, mode=label,
-                        spp_batch=args.spp_batch, budget=budget)
-                else:
-                    img, nrays = render(label, frame_scene, cam, cfg)
-        label = f"{label} on {device.type}"
+            label, issued = issue_frame(args, i, frame_scene, cam, cfg,
+                                        mesh, budget)
+        rendered += 1
         if prof is not None:
-            if issued is not None and issued.done is not None:
+            if issued.done is not None:
                 issued.done.synchronize()
             stop_profile(prof, args.profile)
             prof = None
-        if issued is not None:
-            # encode the previous frame while this one renders
-            if pending is not None:
-                finish_frame(pending, timer, args, stage)
-                rendered += 1
-            pending = (i, png, issued, t0, label)
-            if args.no_pipeline:
-                finish_frame(pending, timer, args, stage)
-                rendered += 1
-                pending = None
-            continue
-        timer.log("render", t0, frame=i)
-        dt = (timer.now() - t0) * 1e-9
-        rays = ("" if nrays is None else
-                f", {mrays_per_sec(nrays, dt):.1f} Mrays/s, {nrays} rays "
-                "exact")
-        print(f"  render ({label}): {dt*1e3:.0f} ms{rays}")
-        if lead:
-            with timer.stage("encode", frame=i):
-                encode(png, img, timer, args)
-        if stage is not None:
-            stage(png, img, i, timer)
-        rendered += 1
+        # finish the frame before while this one renders
+        if pending is not None:
+            finish_frame(pending, timer, args, stage, lead)
+        pending = (i, png, issued, t0, f"{label} on {device.type}")
+        if args.no_pipeline or issued.done is None:
+            finish_frame(pending, timer, args, stage, lead)
+            pending = None
     if pending is not None:
-        finish_frame(pending, timer, args, stage)
-        rendered += 1
+        finish_frame(pending, timer, args, stage, lead)
     if stage is not None:
         stage.close(timer)
 

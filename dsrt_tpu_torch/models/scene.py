@@ -141,7 +141,7 @@ class Scene:
     sun_radiance_host: np.ndarray = dataclasses.field(compare=False,
                                                       repr=False)
     # what the kernel wrappers derive from the tables once per scene
-    # (ops/path_kernel.py); shared by the copies `with_sun` makes
+    # (`cached`); shared by the copies `with_sun` makes
     cache: dict = dataclasses.field(default_factory=dict, compare=False,
                                     repr=False)
 
@@ -164,6 +164,17 @@ class Scene:
         host = np.array(sun_dir, np.float32)
         return dataclasses.replace(self, sun_dir=to_device(host, self.device),
                                    sun_dir_host=host)
+
+    def cached(self, key: str, sources: tuple, make):
+        """`make()`, kept in `cache` under `key` while the tensors in
+        `sources` are this scene's."""
+        hit = self.cache.get(key)
+        if hit is not None and len(hit[0]) == len(sources) and all(
+                a is b for a, b in zip(hit[0], sources)):
+            return hit[1]
+        value = make()
+        self.cache[key] = (sources, value)
+        return value
 
 
 def scene_from_reference(ref, device=None) -> Scene:

@@ -24,6 +24,10 @@ writes `__fmaf_rn`); fast-math is off so divisions and square roots are
 IEEE.  The library lands in <repo>/build/dsrt_tpu_torch/, named
 by a hash of the sources and flags, so an edited source rebuilds.  Every
 pointer and the stream go through ctypes as c_void_p.
+
+The checks every wrapper's launch shares live here too: `ptr`, `i32`,
+`require_cuda`, and for both walkers of the wide table `WIDE_STACK` and
+`check_tables`.
 """
 
 from __future__ import annotations
@@ -35,6 +39,10 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
+
+from dsrt_tpu_torch.models.scene import WIDE_ROW
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "dsrt_tpu_torch"
@@ -72,6 +80,10 @@ SIGNATURES = {
     # in, wt, bias, out; n h w cin cs_in cout cs_out mode; stream
     "dsrt_rdb_conv": [_P] * 4 + [_I] * 8 + [_P],
 }
+
+# the wide walk's stack entries a thread holds (csrc/wide_walk.cuh
+# WIDE_STACK), the TPU kernel's (dsrt_tpu/ops/pallas_path.py:470)
+WIDE_STACK = 256
 
 _lib = None
 build_info: dict = {}
@@ -167,3 +179,43 @@ def check(lib: ctypes.CDLL, rc: int, name: str) -> None:
     if rc != 0:
         msg = lib.dsrt_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+def i32(x: int) -> int:
+    """A uint32 value as the signed int ctypes passes."""
+    x &= 0xFFFFFFFF
+    return x - (1 << 32) if x >= 1 << 31 else x
+
+
+def require_cuda(device: torch.device) -> None:
+    if device.type != "cuda":
+        raise ValueError(f"tensors on {device}: the kernels take CUDA "
+                         "tensors, the plain versions CPU tensors")
+    if not torch.cuda.is_available():
+        raise RuntimeError("CUDA tensors but no CUDA device is available")
+
+
+def ptr(t: torch.Tensor, dtype: torch.dtype, name: str) -> int:
+    """`t`'s data pointer, once it is a contiguous, 16-byte aligned CUDA
+    tensor of `dtype`."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: expected a 16-byte aligned tensor")
+    return t.data_ptr()
+
+
+def check_tables(scene, names) -> None:
+    """Each named table must be a contiguous, 16-byte aligned float32
+    CUDA tensor of (rows, 16) floats, (rows, WIDE_ROW) for wide_pack."""
+    for name in names:
+        cols = WIDE_ROW if name == "wide_pack" else 16
+        t = getattr(scene, name)
+        ptr(t, torch.float32, name)
+        if t.dim() != 2 or t.shape[1] != cols:
+            raise ValueError(f"{name}: expected (rows, {cols}), got "
+                             f"{tuple(t.shape)}")

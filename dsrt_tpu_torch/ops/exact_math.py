@@ -14,7 +14,6 @@ import torch
 
 from dsrt_tpu_torch.ops import build
 from dsrt_tpu_torch.ops.linalg import f64_op
-from dsrt_tpu_torch.ops.path_kernel import _require_cuda
 
 # function -> harness code; each is tried on every draw k * 2^-24
 DOMAINS = {"cos": 0, "sin": 1}
@@ -29,7 +28,7 @@ def plain(fn: str, x: torch.Tensor) -> torch.Tensor:
 def check(fn: str, device) -> dict:
     """Every input of `fn` on the card: the count of inputs, and of the
     mismatches (float bits) against libdevice and against `plain`."""
-    _require_cuda(torch.device(device))
+    build.require_cuda(torch.device(device))
     lib = build.load()
     x, got, ref = (torch.empty(N_DRAWS, dtype=torch.float32, device=device)
                    for _ in range(3))

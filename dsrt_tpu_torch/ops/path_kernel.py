@@ -1,13 +1,13 @@
 """Wrapper of the CUDA kernel in csrc/path_kernel.cu, its plain PyTorch
-version, its launch counter, and the argument checks the port's kernel
-wrappers share.
+version, its launch counter, and the pixel-list launch the sphere
+kernel's wrapper shares.
 
 Port of dsrt_tpu/ops/pallas_path.py over its whole scope
 (`fused_supported`, :101-133, as `scope_error`, with the limits of
 :464-468) and the frame entry `trace_fused` (:3684-3938).  The wrapper
 packs the scene's sphere, quad, light and medium records once per scene
-(`pack_params`, kept in `Scene.cache`, which the per-frame copies that
-`Scene.with_sun` makes share) and the sun vector once per sun direction;
+(`pack_params`, kept by `Scene.cached`, which the per-frame copies that
+`Scene.with_sun` make share) and the sun vector once per sun direction;
 each launch then passes the camera vector, the runtime feature flags and
 the kernel instance the scene needs (`instance_of`).  The kernel walks
 the scene's 8-ary table `wide_pack` (csrc/wide_walk.cuh) with a stack of
@@ -29,8 +29,9 @@ import numpy as np
 import torch
 
 from dsrt_tpu_torch.device import to_device
-from dsrt_tpu_torch.models.scene import WIDE_ROW
 from dsrt_tpu_torch.ops import build
+from dsrt_tpu_torch.ops.build import (WIDE_STACK, check_tables, i32, ptr,
+                                      require_cuda)
 from dsrt_tpu_torch.ops.shade import (check_scope, render_samples,
                                       sun_ldir_host)
 from dsrt_tpu_torch.utils import timing
@@ -41,9 +42,6 @@ MAX_SPH = 12
 MAX_QUADS = 24
 MAX_LIGHTS = 8
 MAX_MED = 4
-# the wide walk's stack entries a thread holds (csrc/wide_walk.cuh
-# WIDE_STACK), the TPU kernel's (dsrt_tpu/ops/pallas_path.py:470)
-WIDE_STACK = 256
 # a warp's pixel tile (csrc/path_kernel.cuh TILE_W, TILE_H)
 TILE_W, TILE_H = 8, 4
 # floats of the packed records: spheres (8 each), quads (18), lights (2),
@@ -105,18 +103,6 @@ def instance_of(scene, cfg) -> int:
             | (K_EXTRA if flags_of(scene, cfg) & EXTRA_FLAGS else 0))
 
 
-def _cached(scene, key: str, sources: tuple, make):
-    """`make()`, kept in scene.cache under `key` while the tensors in
-    `sources` are the scene's."""
-    hit = scene.cache.get(key)
-    if hit is not None and len(hit[0]) == len(sources) and all(
-            a is b for a, b in zip(hit[0], sources)):
-        return hit[1]
-    value = make()
-    scene.cache[key] = (sources, value)
-    return value
-
-
 def _param_sources(scene) -> tuple:
     return (scene.sph_center, scene.sph_center2, scene.sph_radius,
             scene.sph_mat, scene.quad_q, scene.quad_u, scene.quad_v,
@@ -171,8 +157,8 @@ def pack_params(scene) -> torch.Tensor:
     d, material, area; per light its kind (0 sphere, 1 quad) and row; per
     medium kind, centre, radius, box min and max, -1/density, albedo.
     Packed once per scene."""
-    return _cached(scene, "path_params", _param_sources(scene),
-                   lambda: _pack_params(scene))
+    return scene.cached("path_params", _param_sources(scene),
+                        lambda: _pack_params(scene))
 
 
 def sun_vector(scene, shadow_bias: float) -> torch.Tensor:
@@ -185,46 +171,8 @@ def sun_vector(scene, shadow_bias: float) -> torch.Tensor:
             [float(c) for c in sun_ldir_host(scene)]
             + scene.sun_radiance_host.tolist() + [float(shadow_bias)],
             np.float32), scene.device)
-    return _cached(scene, f"sun {float(shadow_bias)!r}",
-                   (scene.sun_dir, scene.sun_radiance), make)
-
-
-def _i32(x: int) -> int:
-    """A uint32 value as the signed int ctypes passes."""
-    x &= 0xFFFFFFFF
-    return x - (1 << 32) if x >= 1 << 31 else x
-
-
-def _require_cuda(device: torch.device) -> None:
-    if device.type != "cuda":
-        raise ValueError(f"tensors on {device}: the kernels take CUDA "
-                         "tensors, the plain versions CPU tensors")
-    if not torch.cuda.is_available():
-        raise RuntimeError("CUDA tensors but no CUDA device is available")
-
-
-def _ptr(t: torch.Tensor, dtype: torch.dtype, name: str) -> int:
-    if t.device.type != "cuda":
-        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous tensor")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name}: expected a 16-byte aligned tensor")
-    return t.data_ptr()
-
-
-def _check_tables(scene, names) -> None:
-    """Each named table must be a contiguous, 16-byte aligned float32
-    CUDA tensor of (rows, 16) floats, (rows, WIDE_ROW) for wide_pack."""
-    for name in names:
-        cols = WIDE_ROW if name == "wide_pack" else 16
-        t = getattr(scene, name)
-        _ptr(t, torch.float32, name)
-        if t.dim() != 2 or t.shape[1] != cols:
-            raise ValueError(f"{name}: expected (rows, {cols}), got "
-                             f"{tuple(t.shape)}")
+    return scene.cached(f"sun {float(shadow_bias)!r}",
+                        (scene.sun_dir, scene.sun_radiance), make)
 
 
 def _wide_tables(scene):
@@ -234,8 +182,8 @@ def _wide_tables(scene):
             f"the scene's BVH needs a walk stack of {scene.wide_stack} "
             f"entries; the path kernel holds at most {WIDE_STACK} (a deeper "
             "tree than the kernel was built for)")
-    _check_tables(scene, ("wide_pack", "tri_pack", "tri_shade", "tri_aux",
-                          "mat_pack"))
+    check_tables(scene, ("wide_pack", "tri_pack", "tri_shade", "tri_aux",
+                         "mat_pack"))
     return scene.wide_pack.data_ptr(), scene.tri_pack.data_ptr()
 
 
@@ -329,7 +277,7 @@ def _path_render(scene, cam, cfg, spp, salt, pixels):
     spp = cfg.resolved_spp() if spp is None else int(spp)
     if scene.device.type == "cpu":
         return path_render_plain(scene, cam, cfg, spp, salt, pixels)
-    _require_cuda(scene.device)
+    require_cuda(scene.device)
     why = scope_error(scene, cfg)
     if why is not None:
         raise NotImplementedError(why)
@@ -339,13 +287,13 @@ def _path_render(scene, cam, cfg, spp, salt, pixels):
     n_tex = int(scene.n_textures)
     for name in ("tex_w", "tex_h", "tex_off"):
         t = getattr(scene, name)
-        _ptr(t, torch.int32, name)
+        ptr(t, torch.int32, name)
         if t.numel() < max(n_tex, 1):
             raise ValueError(f"{name}: fewer entries than textures")
     if scene.tri_aux.shape[0] < scene.tri_pack.shape[0]:
         raise ValueError("tri_aux has fewer rows than tri_pack")
     pool = scene.tex_pool
-    _ptr(pool, torch.float32, "tex_pool")
+    ptr(pool, torch.float32, "tex_pool")
     params = pack_params(scene)
     if params.numel() != PARAM_LEN:
         raise ValueError(f"parameter vector of {params.numel()} floats, "
@@ -365,13 +313,13 @@ def _path_render(scene, cam, cfg, spp, salt, pixels):
             wide, tri, scene.tri_shade.data_ptr(), scene.tri_aux.data_ptr(),
             scene.mat_pack.data_ptr(), pool.data_ptr(),
             scene.tex_w.data_ptr(), scene.tex_h.data_ptr(),
-            scene.tex_off.data_ptr(), _ptr(cam_vec, torch.float32, "camera"),
-            _ptr(sun_vec, torch.float32, "sun"),
-            _ptr(params, torch.float32, "params"),
-            None if pix is None else _ptr(pix, torch.int32, "pixels"),
+            scene.tex_off.data_ptr(), ptr(cam_vec, torch.float32, "camera"),
+            ptr(sun_vec, torch.float32, "sun"),
+            ptr(params, torch.float32, "params"),
+            None if pix is None else ptr(pix, torch.int32, "pixels"),
             accum.data_ptr(), counters.data_ptr(),
             int(cfg.width), int(cfg.height), n, int(cam.width),
-            int(cam.height), spp, _i32(salt), _i32(scene.seed),
+            int(cam.height), spp, i32(salt), i32(scene.seed),
             int(cfg.resolved_max_depth()), int(cfg.rr_start_depth),
             float(cfg.rr_max_p), float(cfg.hit_eps), float(cfg.hit_tmax),
             n_wide, int(scene.tri_pack.shape[0]), n_tex, int(pool.shape[0]),

@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from dsrt_tpu_torch.ops import build
-from dsrt_tpu_torch.ops.path_kernel import _ptr
+from dsrt_tpu_torch.ops.build import ptr
 
 LAUNCHES = {"dsrt_rdb_conv": 0}
 LRELU, RESIDUAL, RRDB_RESIDUAL = 0, 1, 2
@@ -116,9 +116,9 @@ def rdb_conv(src: torch.Tensor, cin: int, conv, dst: torch.Tensor, off: int,
     n, h, w, cs_in = src.shape
     lib = build.load()
     rc = lib.dsrt_rdb_conv(
-        _ptr(src, torch.float32, "src"), _ptr(wt, torch.float32, "weights"),
-        _ptr(bias, torch.float32, "bias"),
-        _ptr(dst, torch.float32, "dst") + 4 * off, n, h, w, cin, cs_in,
+        ptr(src, torch.float32, "src"), ptr(wt, torch.float32, "weights"),
+        ptr(bias, torch.float32, "bias"),
+        ptr(dst, torch.float32, "dst") + 4 * off, n, h, w, cin, cs_in,
         conv.out_channels, dst.shape[3], mode,
         torch.cuda.current_stream(src.device).cuda_stream)
     build.check(lib, rc, "dsrt_rdb_conv")

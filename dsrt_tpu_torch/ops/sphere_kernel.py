@@ -4,7 +4,7 @@ version, and its launch counter.
 Port of dsrt_tpu/ops/pallas_sphere.py: `sphere_fused_supported` (:69-81,
 without the TPU check) and the frame entry `trace_fused_spheres`
 (:723-858).  The wrapper packs the scene's part of the kernel's parameter
-vector once per scene and sun (`scene_params`, kept in `Scene.cache`) and
+vector once per scene and sun (`scene_params`, kept by `Scene.cached`) and
 passes the camera vector beside it; the kernel copies both into its
 constant bank.  It takes the plain version only for a scene on the CPU;
 for a CUDA scene it launches `dsrt_sphere_render` or raises.
@@ -18,9 +18,8 @@ import numpy as np
 import torch
 
 from dsrt_tpu_torch.ops import build
-from dsrt_tpu_torch.ops.path_kernel import (_cached, _i32, _ptr,
-                                            _require_cuda, list_launch,
-                                            pixel_list)
+from dsrt_tpu_torch.ops.build import check_tables, i32, ptr, require_cuda
+from dsrt_tpu_torch.ops.path_kernel import list_launch, pixel_list
 from dsrt_tpu_torch.ops.shade import (MAX_LIGHTS, MAX_MED, MAX_SPH,
                                       check_scope, render_samples,
                                       sun_ldir_host)
@@ -126,8 +125,8 @@ def scene_params(scene, cfg) -> torch.Tensor:
     radiance and shadow bias.  Packed on the host once per scene, sun and
     shadow bias."""
     bias = float(cfg.shadow_bias)
-    return _cached(scene, f"sphere_params {bias!r}", _param_sources(scene),
-                   lambda: _pack_scene(scene, bias))
+    return scene.cached(f"sphere_params {bias!r}", _param_sources(scene),
+                        lambda: _pack_scene(scene, bias))
 
 
 def launch_scalars(scene, cam, cfg, spp: int, salt: int = 0):
@@ -142,7 +141,7 @@ def launch_scalars(scene, cam, cfg, spp: int, salt: int = 0):
         # or not; the centre lerp only with moving spheres
         flags |= SHUTTER | (MOVING if scene.has_moving else 0)
     ints = [int(cfg.width), int(cfg.height), int(cam.width), int(cam.height),
-            int(spp), _i32(salt), _i32(scene.seed),
+            int(spp), i32(salt), i32(scene.seed),
             int(cfg.resolved_max_depth()), int(cfg.rr_start_depth),
             int(scene.mat_pack.shape[0]), scene.n_spheres, scene.n_media,
             scene.n_lights, int(scene.env_tex), int(scene.n_textures),
@@ -183,7 +182,7 @@ def sphere_render(scene, cam, cfg, spp: int | None = None, salt: int = 0,
     spp = cfg.resolved_spp() if spp is None else int(spp)
     if scene.device.type == "cpu":
         return sphere_render_plain(scene, cam, cfg, spp, salt, pixels)
-    _require_cuda(scene.device)
+    require_cuda(scene.device)
     why = scope_error(scene, cfg)
     if why is not None:
         raise NotImplementedError(why)
@@ -195,10 +194,8 @@ def sphere_render(scene, cam, cfg, spp: int | None = None, salt: int = 0,
         raise ValueError(f"parameter vector of {params.numel()} floats and "
                          f"camera of {cam_vec.numel()}, the kernel copies "
                          f"{PARAM_LEN} and 19")
+    check_tables(scene, ("mat_pack",))
     mat = scene.mat_pack
-    if mat.dim() != 2 or mat.shape[1] != 16:
-        raise ValueError(f"mat_pack: expected (rows, 16), got "
-                         f"{tuple(mat.shape)}")
     for name in ("tex_w", "tex_h", "tex_off"):
         if getattr(scene, name).numel() < max(scene.n_textures, 1):
             raise ValueError(f"{name}: fewer entries than textures")
@@ -209,14 +206,14 @@ def sphere_render(scene, cam, cfg, spp: int | None = None, salt: int = 0,
         accum = torch.empty(rows + (3,), dtype=torch.float32, device=dev)
         nrays = torch.zeros(1, dtype=torch.int64, device=dev)
         rc = lib.dsrt_sphere_render(
-            _ptr(params, torch.float32, "params"),
-            _ptr(cam_vec, torch.float32, "camera"),
-            _ptr(mat, torch.float32, "mat_pack"),
-            _ptr(scene.tex_pool, torch.float32, "tex_pool"),
-            _ptr(scene.tex_w, torch.int32, "tex_w"),
-            _ptr(scene.tex_h, torch.int32, "tex_h"),
-            _ptr(scene.tex_off, torch.int32, "tex_off"),
-            None if pix is None else _ptr(pix, torch.int32, "pixels"),
+            ptr(params, torch.float32, "params"),
+            ptr(cam_vec, torch.float32, "camera"),
+            ptr(mat, torch.float32, "mat_pack"),
+            ptr(scene.tex_pool, torch.float32, "tex_pool"),
+            ptr(scene.tex_w, torch.int32, "tex_w"),
+            ptr(scene.tex_h, torch.int32, "tex_h"),
+            ptr(scene.tex_off, torch.int32, "tex_off"),
+            None if pix is None else ptr(pix, torch.int32, "pixels"),
             accum.data_ptr(), nrays.data_ptr(), *ints, n, *floats,
             torch.cuda.current_stream(dev).cuda_stream)
         build.check(lib, rc, "dsrt_sphere_render")

@@ -31,9 +31,9 @@ from __future__ import annotations
 import torch
 
 from dsrt_tpu_torch.ops import build
+from dsrt_tpu_torch.ops.build import (WIDE_STACK, check_tables, ptr,
+                                      require_cuda)
 from dsrt_tpu_torch.ops.linalg import V3, const, sqrt
-from dsrt_tpu_torch.ops.path_kernel import (WIDE_STACK, _check_tables, _ptr,
-                                            _require_cuda)
 from dsrt_tpu_torch.ops.trace import lane_traverse
 
 LAUNCHES = {"dsrt_traverse": 0, "dsrt_traverse_sun": 0}
@@ -82,10 +82,10 @@ def _tables(scene, walk: str):
     if scene.bvh_pack.shape[0] < max(scene.n_nodes, 1):
         raise ValueError("bvh_pack has fewer rows than n_nodes")
     if walk == "wide":
-        _check_tables(scene, ("bvh_pack", "wide_pack", "tri_pack"))
+        check_tables(scene, ("bvh_pack", "wide_pack", "tri_pack"))
         return (scene.bvh_pack.data_ptr(), 0, scene.wide_pack.data_ptr(),
                 scene.tri_pack.data_ptr())
-    _check_tables(scene, ("bvh_pack", "thr_pack", "tri_pack"))
+    check_tables(scene, ("bvh_pack", "thr_pack", "tri_pack"))
     return (scene.bvh_pack.data_ptr(), scene.thr_pack.data_ptr(), 0,
             scene.tri_pack.data_ptr())
 
@@ -176,7 +176,7 @@ def _launch(scene, ro: V3, rd: V3, active, t_min: float, t_max: float,
     walk; returns (t, u, v, tri int64, blocked bool or None) shaped like
     `active`."""
     dev = active.device
-    _require_cuda(dev)
+    require_cuda(dev)
     if active.dtype != torch.bool:
         raise ValueError(f"active: expected torch.bool, got {active.dtype}")
     lib = build.load()
@@ -197,7 +197,7 @@ def _launch(scene, ro: V3, rd: V3, active, t_min: float, t_max: float,
     name = "dsrt_traverse_sun" if query == "sun" else "dsrt_traverse"
     rc = lib.dsrt_traverse(
         bvh, thr, wide, tri, *ptrs, act.data_ptr(),
-        0 if sun is None else _ptr(sun, torch.float32, "sun"), t.data_ptr(),
+        0 if sun is None else ptr(sun, torch.float32, "sun"), t.data_ptr(),
         u.data_ptr(), v.data_ptr(), tri_out.data_ptr(),
         0 if blocked is None else blocked.data_ptr(), n, int(scene.n_nodes),
         n_wide, int(scene.tri_pack.shape[0]), bcast, QUERIES.index(query),

@@ -45,7 +45,6 @@ import torch.distributed as dist
 
 from dsrt_tpu_torch.models.scene import FLOAT_META, INT_META, BOOL_META, TABLES
 from dsrt_tpu_torch.ops import rng as rngmod
-from dsrt_tpu_torch.ops.path_kernel import _cached
 from dsrt_tpu_torch.ops.shade import pixel_grid, stratified_sums
 from dsrt_tpu_torch.render import (PACKET, TILE_H, TILE_W, fused_accum,
                                    lanes_to_image, tonemap, tonemap_u8)
@@ -95,8 +94,8 @@ def _tables_digest(scene) -> bytes:
         h.update(repr([getattr(scene, m)
                        for m in INT_META + BOOL_META + FLOAT_META]).encode())
         return h.digest()
-    return _cached(scene, "rank digest",
-                   tuple(getattr(scene, n) for n in _DIGEST_TABLES), make)
+    return scene.cached("rank digest",
+                        tuple(getattr(scene, n) for n in _DIGEST_TABLES), make)
 
 
 def check_ranks_agree(scene, cam, cfg, mesh) -> None:

@@ -26,6 +26,11 @@ above FUSED_DISPATCH_RAYS primary rays renders as ceil(spp/chunk) chunks
 whose LCG streams are salted with i * 0x9E3779B9 (chunk 0 unsalted),
 which defines the pixels of frames such as 800x450 at 1000 spp.
 
+`render_frame_async` issues a fused or wavefront frame as the
+`PendingFrame` the driver's loop takes from every renderer; `finish`
+brings it to the host, and `render_frame_fused` and
+`render_frame_wavefront` are `finish` of it.
+
 `render_frame_adaptive` renders split-buffer rounds over a shrinking
 set of active pixels through the megakernels' pixel-list launch
 (`fused_accum`); its sums, convergence test and tonemap run in float64
@@ -191,9 +196,9 @@ def render_frame_fused(scene, cam, cfg: RenderConfig,
     """One frame through the megakernel that covers the scene; (H, W, 3)
     u8 (and the exact ray count with `with_count`).  Check `fused_kind`
     first: other scenes raise NotImplementedError."""
-    accum, nrays = render_accum_fused(scene, cam, cfg, budget)
-    img = tonemap(accum, cfg, cfg.resolved_spp())
-    return (img, int(nrays)) if with_count else img
+    img, nrays = finish(render_frame_async(scene, cam, cfg, "fused",
+                                           budget=budget))
+    return (img, nrays) if with_count else img
 
 
 def fused_accum(scene, cam, cfg: RenderConfig, spp: int, salt: int,
@@ -333,10 +338,8 @@ def render_frame_debug(scene, cam, cfg: RenderConfig) -> np.ndarray:
 
 def _wavefront_accum(scene, cam, cfg: RenderConfig, spp_batch: int):
     """(height, width, 3) sums and the exact ray count of the split
-    pipeline with `spp_batch` sample slots per pixel."""
+    pipeline with `spp_batch` sample slots per pixel (dividing spp)."""
     spp = cfg.resolved_spp()
-    if spp % spp_batch != 0:
-        raise ValueError(f"spp_batch={spp_batch} must divide spp={spp}")
     dev = scene.device
     px, py, valid, (ty, tx) = lane_layout(cfg.width, cfg.height)
     k = px.shape[0]
@@ -358,9 +361,12 @@ def render_frame_wavefront(scene, cam, cfg: RenderConfig, spp_batch: int = 8,
     """The split pipeline with per-lane regeneration: `spp_batch` sample
     slots per pixel (must divide spp), decorrelated streams; (H, W, 3) u8
     (and the exact ray count with `with_count`)."""
-    accum, nrays = _wavefront_accum(scene, cam, cfg, spp_batch)
-    img = tonemap(accum, cfg, cfg.resolved_spp())
-    return (img, int(nrays)) if with_count else img
+    spp = cfg.resolved_spp()
+    if spp % spp_batch != 0:
+        raise ValueError(f"spp_batch={spp_batch} must divide spp={spp}")
+    img, nrays = finish(render_frame_async(scene, cam, cfg, "wavefront",
+                                           spp_batch))
+    return (img, nrays) if with_count else img
 
 
 def fit_spp_batch(spp: int, spp_batch: int) -> int:
@@ -372,12 +378,14 @@ def fit_spp_batch(spp: int, spp_batch: int) -> int:
 
 @dataclasses.dataclass
 class PendingFrame:
-    """A frame issued by render_frame_async: its u8 image and ray count
-    (in pinned host memory on the card, copied when `done` fires; `done`
-    is None when the frame ran on the CPU and is complete)."""
-    img: torch.Tensor
-    nrays: torch.Tensor
-    done: "torch.cuda.Event | None"
+    """A frame handed to the frame loop: its u8 image, row 0 = top, and
+    its exact ray count, None where the renderer counts none.  From
+    render_frame_async on the card both are in pinned host memory,
+    copied when `done` fires; `done` is None when the frame is complete
+    (a CPU frame, or an image already on the host)."""
+    img: "torch.Tensor | np.ndarray"
+    nrays: "torch.Tensor | int | None" = None
+    done: "torch.cuda.Event | None" = None
 
 
 def render_frame_async(scene, cam, cfg: RenderConfig, mode: str = "fused",
@@ -412,11 +420,12 @@ def render_frame_async(scene, cam, cfg: RenderConfig, mode: str = "fused",
 
 
 def finish(frame: PendingFrame):
-    """(u8 image, exact ray count) of a frame from render_frame_async,
-    after waiting for that frame's event only."""
+    """(numpy u8 image, exact ray count or None) of a frame, after
+    waiting for that frame's event only."""
     if frame.done is not None:
         frame.done.synchronize()
-    return frame.img.numpy(), int(frame.nrays)
+    return (np.asarray(frame.img),
+            None if frame.nrays is None else int(frame.nrays))
 
 
 def render_frame_queue(scene, cam, cfg: RenderConfig, pool_packets: int = 0):

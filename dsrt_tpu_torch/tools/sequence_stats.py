@@ -26,10 +26,9 @@ import numpy as np
 
 FRAME = re.compile(r"^=== Frame (\d+) ===")
 SEPARATION = re.compile(r"sep\(cam, model\) = ([0-9.eE+-]+) m")
-# a pipelined frame, and a frame rendered and encoded in turn
-PIPELINED = re.compile(r"\[frame (\d+)\] render \((.+)\) \+ wait: .* "
-                       r"(\d+) rays exact")
-SERIAL = re.compile(r"^  render \((.+)\): .* (\d+) rays exact")
+# the driver's line for a finished frame (driver.finish_frame)
+FINISHED = re.compile(r"\[frame (\d+)\] render \((.+)\) \+ wait: .* "
+                      r"(\d+) rays exact")
 TOTAL = re.compile(r"^Total runtime: ([0-9.]+) s")
 
 
@@ -56,15 +55,10 @@ def parse_log(text: str):
         if m and current is not None:
             sep[current] = float(m.group(1))
             continue
-        m = PIPELINED.search(ln)
+        m = FINISHED.search(ln)
         if m:
             i = int(m.group(1))
             frames.append((i, sep.get(i), m.group(2), int(m.group(3))))
-            continue
-        m = SERIAL.match(ln)
-        if m and current is not None:
-            frames.append((current, sep.get(current), m.group(1),
-                           int(m.group(2))))
             continue
         m = TOTAL.match(ln)
         if m:

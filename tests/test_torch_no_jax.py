@@ -2,6 +2,7 @@
 (dsrt_tpu), puts its tensors on the card unless asked otherwise, and never
 falls back from CUDA to CPU."""
 
+import ast
 import os
 import re
 import shutil
@@ -100,6 +101,38 @@ def test_package_source_has_no_jax_imports():
         assert not FORBIDDEN.search(line), line
 
 
+def private_imports(source: str) -> list:
+    """(module, name) of each underscore name that `source` imports from
+    a module of dsrt_tpu_torch (dunder names aside)."""
+    out = []
+    for node in ast.walk(ast.parse(source)):
+        if isinstance(node, ast.ImportFrom) and (
+                node.level or (node.module or "").split(".")[0]
+                == "dsrt_tpu_torch"):
+            out += [(node.module, a.name) for a in node.names
+                    if a.name.startswith("_")
+                    and not a.name.startswith("__")]
+    return out
+
+
+def test_package_modules_import_no_private_name_of_another():
+    """A name two modules of the package share is public in the module
+    that owns it: no module imports an underscore name of another."""
+    hits = [f"{f.relative_to(ROOT)}: {mod}.{name}"
+            for f in sorted(PKG.rglob("*.py"))
+            for mod, name in private_imports(f.read_text())]
+    assert not hits, hits
+    # the scan does catch what it must
+    assert private_imports(
+        "from dsrt_tpu_torch.ops.path_kernel import (list_launch,\n"
+        "    _ptr)\n") == [("dsrt_tpu_torch.ops.path_kernel", "_ptr")]
+    assert private_imports("def f():\n    from .build import _lib\n") \
+        == [("build", "_lib")]
+    assert not private_imports("from __future__ import annotations\n"
+                               "from os import _exit\n"
+                               "from dsrt_tpu_torch.ops import build\n")
+
+
 def test_non_cpu_tensors_never_fall_back_to_the_plain_version():
     scene = single_triangle_scene(device="cpu").to("meta")
     cam = make_camera((0, 0, 1.0), (0, 0, -2), vfov=50, width=8, height=6,
@@ -133,7 +166,7 @@ def test_cuda_request_without_a_card_raises(monkeypatch):
         driver.resolve_device("cuda")
     assert driver.resolve_device("cpu").type == "cpu"
     with pytest.raises(RuntimeError, match="CUDA"):
-        path_kernel._require_cuda(torch.device("cuda"))
+        build.require_cuda(torch.device("cuda"))
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -191,15 +191,17 @@ def test_frame_inputs_reproduce_the_drivers_frame(tmp_path, capsys):
 
 
 def test_sequence_stats_of_a_log(tmp_path):
-    """Pipelined and serial frame lines, the loop wall to the ms, and a
-    TSV that does not match the log."""
+    """Frame lines in the order the frames finished (frame 5 finished at
+    once, between pipelined ones), the loop wall to the ms, and a TSV
+    that does not match the log."""
     log = "\n".join([
         "=== Frame 3 ===", "  sep(cam, model) = 100.500 m",
         "=== Frame 4 ===", "  sep(cam, model) = 50.250 m",
         "  [frame 3] render (fused on cuda) + wait: 20 ms, 50.0 Mrays/s, "
         "1000000 rays exact",
         "=== Frame 5 ===", "  sep(cam, model) = 25.000 m",
-        "  render (fused on cuda): 40 ms, 75.0 Mrays/s, 3000000 rays exact",
+        "  [frame 5] render (fused on cuda) + wait: 40 ms, 75.0 Mrays/s, "
+        "3000000 rays exact",
         "  [frame 4] render (fused on cuda) + wait: 10 ms, 200.0 Mrays/s, "
         "2000000 rays exact", "", "Total runtime: 0.123 s (3 frames)"])
     tsv = tmp_path / "t.tsv"
