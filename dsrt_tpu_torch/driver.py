@@ -53,10 +53,16 @@ first frame's stage (span `upscale_load`, frame -1, after
 RRDBNet on that checkpoint, and a file that is missing or does not load
 fails the run there, with nothing fetched and no fallback; without it
 the release weights' lookup (`fetch_weights`), else bicubic, as
-`scripts.upsample` does.  Per frame: span `upscale` (the network,
-`models/esrgan.py` `upscale_u8`, whose tile batches are spans
-`upscale_forward`), then the upscaled PNG's write on a thread of its
-own, which overlaps the next frame's upscale on the card; its row
+`scripts.upsample` does.  Frame i's stage issues its upscale (span
+`upscale`: `Upscaler.issue`, the network's `models/esrgan.py`
+`upscale_u8_async`, whose tile batches are spans `upscale_forward`; on
+the card nothing there waits for the device), and only then finishes
+frame i-1's (span `upscale_finish`: the wait for its copy back, and the
+stitch), so the card runs frame i's forward while the host stitches and
+writes frame i-1 and renders, encodes and tiles frame i+1.  A frame
+finished with nothing queued behind it, each frame with `--no_pipeline`
+and the last at the loop's end, is span `upscale_drain`.  The upscaled
+PNG is written on a thread of its own, one write in flight; its row
 `upscale_encode` is recorded when the loop waits for it (before the
 next write, and at the loop's end), and is no profiler annotation.  A
 failed stage fails the run.  `--resume` with `--upscale` skips a frame
@@ -281,18 +287,21 @@ def stop_profile(prof, out_dir: str) -> None:
 
 class UpscaleStage:
     """`--upscale` inside the frame loop: `stage(png, img, i, timer)`
-    upscales frame i's u8 image x4 and writes it to `<output_dir>_upscaled`
-    under the frame's PNG name.  The backend is loaded at the first call.
-    The write runs on a thread of its own while the next frame is
-    upscaled on the card (zlib lets go of the interpreter lock), one
-    write in flight at most; `close` waits for the last."""
+    issues frame i's x4 upscale, then finishes the frame issued before
+    (all of them with --no_pipeline), whose image is written to
+    `<output_dir>_upscaled` under its frame's PNG name.  The backend is
+    loaded at the first call.  The write runs on a thread of its own
+    (zlib lets go of the interpreter lock), one write in flight at most;
+    `close` finishes the frame left and waits for the last write."""
 
     def __init__(self, args, device):
         self.out_dir = args.output_dir + "_upscaled"
         self.weights = args.upscale_weights or None
+        self.pipeline = not args.no_pipeline
         self.device = device
         self.up = None
         self.writer = None
+        self.issued = None    # (PendingUpscale, PNG, frame id) unfinished
         self.writing = None   # (future of the write, its frame id)
 
     def final(self, png: str) -> str:
@@ -310,7 +319,21 @@ class UpscaleStage:
             self.writer = ThreadPoolExecutor(
                 1, thread_name_prefix="upscale_encode")
         with timer.stage("upscale", frame=frame):
-            out = self.up(img)
+            issued = (self.up.issue(img), png, frame)
+        if self.issued is not None:
+            self.finish(timer, "upscale_finish")
+        self.issued = issued
+        if not self.pipeline:
+            self.finish(timer, "upscale_drain")
+
+    def finish(self, timer: StageTimer, span: str) -> None:
+        """Wait for the issued frame's image (span `span`) and hand it
+        to the writer once the write in flight is done."""
+        from dsrt_tpu_torch.models.esrgan import finish_upscale
+        pending, png, frame = self.issued
+        self.issued = None
+        with timer.stage(span, frame=frame):
+            out = finish_upscale(pending)
         self.wait(timer)
         self.writing = (self.writer.submit(self._write, timer,
                                            self.final(png), out), frame)
@@ -331,7 +354,10 @@ class UpscaleStage:
             timer.log("upscale_encode", t0, frame=frame, end_ns=t1)
 
     def close(self, timer: StageTimer) -> None:
-        """Wait for the last write and let the writer's thread go."""
+        """Finish the frame left, wait for the last write and let the
+        writer's thread go."""
+        if self.issued is not None:
+            self.finish(timer, "upscale_drain")
         if self.writer is not None:
             self.wait(timer)
             self.writer.shutdown()

@@ -31,10 +31,20 @@ through the network in batches that fit the device's free memory.
 network's output to u8 on the device (JAX's round half to even and clip
 of y * 255 in float32, the same values), so that 4x fewer bytes come
 back and the host stitches u8.
+
+Each of them is `finish_upscale` of its `_async` twin, as
+`render.render_frame_fused` is `render.finish` of
+`render.render_frame_async`: on the card the async call queues the tiles'
+copy in from pinned memory, the forwards, the u8 conversion, the copy
+back into pinned memory and an event, and returns without waiting for
+the device; `finish_upscale` waits for that event alone and stitches on
+the host.  So a caller can queue the next image's work before it
+finishes this one.  On the CPU the async call runs to the end.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from collections import OrderedDict
 
 import numpy as np
@@ -42,7 +52,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from dsrt_tpu_torch.device import resolve_device
+from dsrt_tpu_torch.device import resolve_device, to_device
 from dsrt_tpu_torch.ops import rdb_conv
 from dsrt_tpu_torch.utils import timing
 
@@ -289,27 +299,65 @@ def tile_batch(net: RRDBNet, tile: int, n_tiles: int) -> int:
     return int(max(1, min(n_tiles, budget // per_tile)))
 
 
-def forward_tiles(net: RRDBNet, tiles: np.ndarray,
-                  u8: bool = False) -> np.ndarray:
-    """(N, h, w, 3) float32 tiles -> (N, s*h, s*w, 3) float32 on the
-    host (with `u8`: uint8, round(y * 255) clipped to 0..255 on the
-    device), `tile_batch` tiles a forward, each batch (copy in, forward,
-    copy out) a span `upscale_forward`."""
+@dataclasses.dataclass
+class PendingUpscale:
+    """Upscaled tiles on their way to the host: `ups`, in pinned host
+    memory that the copy back fills when `done` fires (None: complete,
+    as on the CPU), and the `stitch` arguments (origins, height, width,
+    tile, overlap) that make them one image, None where `ups` is the
+    result as it stands."""
+    ups: torch.Tensor
+    grid: tuple | None = None
+    done: "torch.cuda.Event | None" = None
+
+
+def issue_tiles(net: RRDBNet, tiles: np.ndarray, u8: bool = False,
+                grid: tuple | None = None) -> PendingUpscale:
+    """Queue (N, h, w, 3) float32 tiles through the network and return
+    without waiting for the device: `tile_batch` tiles a forward, each
+    batch (copy in from pinned memory, forward, with `u8` round(y * 255)
+    clipped to 0..255 as uint8, copy back) a span `upscale_forward`, then
+    an event on the stream.  The result's tiles are (N, s*h, s*w, 3),
+    float32 or uint8; `grid` is handed on to `finish_upscale`."""
     dev = next(net.parameters()).device
     n, th, tw, _ = tiles.shape
     batch = tile_batch(net, max(th, tw), n)
     s = net.scale
-    out = np.empty((n, th * s, tw * s, 3), np.uint8 if u8 else np.float32)
+    cuda = dev.type == "cuda"
+    nchw = np.ascontiguousarray(tiles.transpose(0, 3, 1, 2))
     with torch.inference_mode(), fp32_convs():
+        ups = torch.empty((n, th * s, tw * s, 3),
+                          dtype=torch.uint8 if u8 else torch.float32,
+                          pin_memory=cuda)
         for i in range(0, n, batch):
             with timing.span("upscale_forward"):
-                x = torch.from_numpy(np.ascontiguousarray(
-                    tiles[i:i + batch].transpose(0, 3, 1, 2))).to(dev)
-                y = net(x)
+                y = net(to_device(nchw[i:i + batch], dev))
                 if u8:
                     y = torch.round(y * 255.0).clamp_(0, 255).to(torch.uint8)
-                out[i:i + batch] = y.permute(0, 2, 3, 1).cpu().numpy()
-    return out
+                ups[i:i + batch].copy_(y.permute(0, 2, 3, 1).contiguous(),
+                                       non_blocking=True)
+        done = None
+        if cuda:
+            done = torch.cuda.Event()
+            done.record()
+    return PendingUpscale(ups, grid, done)
+
+
+def finish_upscale(p: PendingUpscale) -> np.ndarray:
+    """The host array of an issued upscale, after waiting for its event
+    only: its tiles stitched on its grid, or `ups` where it has none."""
+    if p.done is not None:
+        p.done.synchronize()
+    ups = p.ups.numpy()
+    return ups if p.grid is None else stitch(ups, *p.grid)
+
+
+def forward_tiles(net: RRDBNet, tiles: np.ndarray,
+                  u8: bool = False) -> np.ndarray:
+    """(N, h, w, 3) float32 tiles -> (N, s*h, s*w, 3) float32 on the
+    host (with `u8`: uint8, round(y * 255) clipped to 0..255 on the
+    device); `issue_tiles` then `finish_upscale`."""
+    return finish_upscale(issue_tiles(net, tiles, u8))
 
 
 def tile_grid(img: np.ndarray, tile: int = 128, overlap: int = 8):
@@ -344,21 +392,36 @@ def stitch(ups: np.ndarray, origins, height: int, width: int,
     return out[:height * s, :width * s]
 
 
+def upscale_tiled_async(net: RRDBNet, img: np.ndarray, tile: int = 128,
+                        overlap: int = 8, u8: bool = False) -> PendingUpscale:
+    """Issue the `net.scale` x upscale of an (H, W, 3) float [0,1] image
+    in overlapping tiles (`tile_grid`, `issue_tiles`) without waiting for
+    the device; `finish_upscale` stitches it.  An image within one tile
+    runs whole."""
+    h, w, _ = img.shape
+    if h <= tile and w <= tile:
+        p = issue_tiles(net, img[None].astype(np.float32), u8)
+        return dataclasses.replace(p, ups=p.ups[0])
+    tiles, origins = tile_grid(img, tile, overlap)
+    return issue_tiles(net, tiles, u8, (origins, h, w, tile, overlap))
+
+
 def upscale_tiled(net: RRDBNet, img: np.ndarray, tile: int = 128,
                   overlap: int = 8, u8: bool = False) -> np.ndarray:
     """Upscale an (H, W, 3) float [0,1] image `net.scale` x in
-    overlapping tiles (`tile_grid`, `forward_tiles`, `stitch`); an image
-    within one tile runs whole.  Float out, or with `u8` uint8."""
-    h, w, _ = img.shape
-    if h <= tile and w <= tile:
-        return forward_tiles(net, img[None].astype(np.float32), u8)[0]
-    tiles, origins = tile_grid(img, tile, overlap)
-    return stitch(forward_tiles(net, tiles, u8), origins, h, w, tile,
-                  overlap)
+    overlapping tiles (`upscale_tiled_async`, then `finish_upscale`); an
+    image within one tile runs whole.  Float out, or with `u8` uint8."""
+    return finish_upscale(upscale_tiled_async(net, img, tile, overlap, u8))
+
+
+def upscale_u8_async(net: RRDBNet, img_u8: np.ndarray, tile: int = 128,
+                     overlap: int = 8) -> PendingUpscale:
+    """Issue `upscale_u8` of `img_u8` without waiting for the device."""
+    return upscale_tiled_async(net, img_u8.astype(np.float32) / 255.0, tile,
+                               overlap, u8=True)
 
 
 def upscale_u8(net: RRDBNet, img_u8: np.ndarray, tile: int = 128,
                overlap: int = 8) -> np.ndarray:
     """uint8 (H, W, 3) -> uint8 (sH, sW, 3) through the network."""
-    return upscale_tiled(net, img_u8.astype(np.float32) / 255.0, tile,
-                         overlap, u8=True)
+    return finish_upscale(upscale_u8_async(net, img_u8, tile, overlap))

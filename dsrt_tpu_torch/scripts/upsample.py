@@ -20,7 +20,12 @@ weights.
 `Upscaler` picks and loads the backend, for `process_folder` and for the
 driver's `--upscale` alike.  Given a weights path (the driver's
 `--upscale_weights`) it takes rrdbnet on that file: no lookup, no
-download, no fallback.
+download, no fallback.  `Upscaler.issue` starts an image and returns
+before the device is done (rrdbnet's `models/esrgan.py`
+`upscale_u8_async`; the other backends complete it), and
+`esrgan.finish_upscale` of the result is the upscaled image: the
+driver's stage queues the next frame's forward before it finishes this
+one's.
 
 Usage: python -m dsrt_tpu_torch.scripts.upsample --in dir_or_image
        --out out_dir [--scale 4] [--backend auto|rrdbnet|torch|pil]
@@ -138,6 +143,16 @@ class Upscaler:
                                              device=self.device)
             backend = "rrdbnet"
         self.backend = backend
+
+    def issue(self, img: np.ndarray):
+        """`img`'s upscale as an `esrgan.PendingUpscale`: on the device
+        and not yet waited for through the network, complete through
+        the other backends."""
+        from dsrt_tpu_torch.models import esrgan
+        if self.backend == "rrdbnet":
+            return esrgan.upscale_u8_async(self.net, img)
+        import torch
+        return esrgan.PendingUpscale(torch.from_numpy(self(img)))
 
     def __call__(self, img: np.ndarray) -> np.ndarray:
         if self.backend == "rrdbnet":

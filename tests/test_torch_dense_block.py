@@ -205,15 +205,20 @@ def test_kernel_matches_plain_on_the_card(cuda, nf, gc):
         assert rel_err(g, w) <= 1e-5
 
 
-@pytest.mark.cuda
-def test_frame_through_the_kernel_matches_plain_u8(cuda):
-    net = lively_net(cuda)
+def wavy_frame(seed=3):
+    """An 800x450 u8 frame: smooth waves per channel plus noise."""
     yy, xx = np.mgrid[0:450, 0:800].astype(np.float32)
-    rng = np.random.default_rng(3)
+    rng = np.random.default_rng(seed)
     img = np.stack([np.sin(xx / (17 + 9 * c)) * np.cos(yy / (23 + 5 * c))
                     for c in range(3)], -1) * 0.4 + 0.5
     img += rng.normal(0.0, 0.05, img.shape).astype(np.float32)
-    img = (np.clip(img, 0, 1) * 255).astype(np.uint8)
+    return (np.clip(img, 0, 1) * 255).astype(np.uint8)
+
+
+@pytest.mark.cuda
+def test_frame_through_the_kernel_matches_plain_u8(cuda):
+    net = lively_net(cuda)
+    img = wavy_frame()
     rdb_conv.reset_launches()
     got = esrgan.upscale_u8(net, img)
     torch.cuda.synchronize()
@@ -225,6 +230,26 @@ def test_frame_through_the_kernel_matches_plain_u8(cuda):
     assert got.shape == want.shape == (1800, 3200, 3)
     d = np.abs(got.astype(np.int32) - want.astype(np.int32))
     assert (d == 0).mean() >= 0.9999 and d.max() <= 1
+
+
+@pytest.mark.cuda
+def test_frames_issued_back_to_back_are_upscale_u8s(cuda):
+    """Two 800x450 frames issued one after the other (28 tiles, one
+    forward each) and only then finished are each `upscale_u8`'s bytes,
+    and their issue makes no host-device synchronisation."""
+    net = lively_net(cuda)
+    imgs = [wavy_frame(seed) for seed in (3, 4)]
+    want = [esrgan.upscale_u8(net, img) for img in imgs]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = [esrgan.upscale_u8_async(net, img) for img in imgs]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(p.done is not None and p.ups.is_pinned() for p in pending)
+    for p, w in zip(pending, want):
+        got = esrgan.finish_upscale(p)
+        assert got.shape == (1800, 3200, 3) and np.array_equal(got, w)
 
 
 @pytest.mark.cuda

@@ -28,6 +28,8 @@ from dsrt_tpu_torch.scripts import upsample
 from dsrt_tpu_torch.utils import image_io, timing
 from portbench import reference_esrgan as rup
 from portbench import weights
+from portbench.harness import Frame, Run
+from portbench.registry import Bench
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 POSES = os.path.join(ROOT, "portbench", "data", "poses99.txt")
@@ -40,7 +42,7 @@ W, H, TILE, OVERLAP = 160, 90, 128, 8
 ARGS = ["--device", "cpu", "--width", str(W), "--height", str(H), "--spp",
         "2", "--max_depth", "3", "--standin_detail", "1"]
 STAGE_SPANS = ("upscale_load", "upscale", "upscale_forward",
-               "upscale_encode")
+               "upscale_encode", "upscale_finish", "upscale_drain")
 
 
 def _pose_file(tmp, first=97, n=2):
@@ -62,8 +64,8 @@ class _Kept(timing.StageTimer):
 
 
 def _drive(monkeypatch, tmp, extra, n=2):
-    """Run the driver over n poses with a timer kept; returns (timer,
-    output dir, the PNG writes in order)."""
+    """Run the driver over the last n poses with a timer kept;
+    returns (timer, output dir, the PNG writes in order)."""
     writes = []
     real = image_io.write_png
 
@@ -74,7 +76,7 @@ def _drive(monkeypatch, tmp, extra, n=2):
     monkeypatch.setattr(driver, "StageTimer", _Kept)
     monkeypatch.setattr(image_io, "write_png", write_png)
     out = os.path.join(str(tmp), "frames")
-    assert driver.main(ARGS + ["--input_txt", _pose_file(tmp, n=n),
+    assert driver.main(ARGS + ["--input_txt", _pose_file(tmp, 99 - n, n),
                                "--output_dir", out, *extra]) == 0
     assert len(_Kept.made) == 1
     return _Kept.made[0], out, writes
@@ -204,9 +206,11 @@ def test_stage_spans_have_their_frames_and_parents(staged):
     assert rows == sorted([("upscale_load", -1, "run"),
                            ("upscale", 0, "run"),
                            ("upscale_forward", 0, "upscale"),
+                           ("upscale_finish", 0, "run"),
                            ("upscale_encode", 0, "run"),
                            ("upscale", 1, "run"),
                            ("upscale_forward", 1, "upscale"),
+                           ("upscale_drain", 1, "run"),
                            ("upscale_encode", 1, "run")])
     at = {(r[0], r[3]): (r[1], r[2]) for r in rec}
     assert at[("upscale_load", -1)][1] <= at[("upscale", 0)][0]
@@ -215,8 +219,86 @@ def test_stage_spans_have_their_frames_and_parents(staged):
         assert at[("encode", i)][1] <= at[("upscale", i)][0]
         assert at[("upscale", i)][1] <= at[("upscale_encode", i)][0]
         assert at[("upscale_encode", i)][0] <= at[("upscale_encode", i)][1]
+    # frame 0 is finished once frame 1's forward is queued, frame 1 at
+    # the end; each write after its frame's finish
+    assert at[("upscale", 1)][1] <= at[("upscale_finish", 0)][0]
+    assert at[("upscale_finish", 0)][1] <= at[("upscale_encode", 0)][0]
+    assert at[("upscale_drain", 1)][1] <= at[("upscale_encode", 1)][0]
     # one write in flight: frame 1's starts once frame 0's is done
     assert at[("upscale_encode", 0)][1] <= at[("upscale_encode", 1)][0]
+
+
+def _three(monkeypatch, tmp, ckpt, *extra):
+    """3 frames of 16x12 through the stage: (timer, output dir, PNG
+    writes), and the rows [name, start, end, frame, parent's name] of
+    the spans that finish a frame's upscale."""
+    os.makedirs(tmp, exist_ok=True)
+    timer, out, writes = _drive(monkeypatch, tmp, [
+        "--width", "16", "--height", "12", "--upscale",
+        "--upscale_weights", ckpt, *extra], n=3)
+    rec = timer.records
+    done = [r[:4] + [rec[r[4]][0]] for r in rec
+            if r[0] in ("upscale_finish", "upscale_drain")]
+    return timer, out, writes, done
+
+
+def _written_in_order(out, writes):
+    """Upscaled PNGs written in frame order, each after its raw PNG."""
+    frames = _frames(out)
+    assert len(frames) == 3 and _frames(out + "_upscaled") == frames
+    up = [os.path.join(out + "_upscaled", f) for f in frames]
+    assert [w for w in writes if w in up] == up
+    for f, u in zip(frames, up):
+        assert writes.index(os.path.join(out, f)) < writes.index(u)
+
+
+def test_each_frame_is_finished_once_the_next_forward_is_queued(
+        tmp_path, monkeypatch, ckpt):
+    timer, out, writes, done = _three(monkeypatch, tmp_path, ckpt)
+    assert [(r[0], r[3], r[4]) for r in done] == [
+        ("upscale_finish", 0, "run"), ("upscale_finish", 1, "run"),
+        ("upscale_drain", 2, "run")]
+    fwd = {r[3]: r[2] for r in timer.records if r[0] == "upscale_forward"}
+    for name, t0, _, frame, _ in done[:2]:
+        assert fwd[frame + 1] <= t0
+    assert fwd[2] <= done[2][1]
+    _written_in_order(out, writes)
+
+
+def test_no_pipeline_drains_each_frame_in_its_own_stage_call(
+        tmp_path, monkeypatch, ckpt):
+    timer, out, writes, done = _three(monkeypatch, tmp_path / "serial", ckpt,
+                                      "--no_pipeline")
+    assert [(r[0], r[3], r[4]) for r in done] == [
+        ("upscale_drain", i, "run") for i in range(3)]
+    up = {r[3]: (r[1], r[2]) for r in timer.records if r[0] == "upscale"}
+    for _, t0, t1, frame, _ in done:
+        assert up[frame][1] <= t0
+        assert frame == 2 or t1 <= up[frame + 1][0]
+    _written_in_order(out, writes)
+    # the same bytes as the pipelined run's
+    _, piped, _, _ = _three(monkeypatch, tmp_path / "piped", ckpt)
+    for f in _frames(out + "_upscaled"):
+        with open(os.path.join(out + "_upscaled", f), "rb") as a, \
+                open(os.path.join(piped + "_upscaled", f), "rb") as b:
+            assert a.read() == b.read(), f
+
+
+@pytest.mark.parametrize("extra,want", [((), 2 / 3), (("--no_pipeline",), 0.0)],
+                         ids=["pipelined", "no_pipeline"])
+def test_overlapped_reader_counts_frames_finished_behind_a_forward(
+        tmp_path, monkeypatch, ckpt, extra, want):
+    """portbench's `upscale.overlapped` on the driver's own spans: the
+    `upscale_finish` rows per PNG written."""
+    timer, out, _, _ = _three(monkeypatch, tmp_path, ckpt, *extra)
+    run = Run()
+    run.tsv = [(r[0], (r[2] - r[1]) * 1e-9) for r in timer.records]
+    run.frames = [Frame(0, i, "", "", 0.1) for i in range(3)]
+    read = Bench().reader("upscale.overlapped")
+    assert read(run) == pytest.approx(want)
+    run.tsv = [r for r in run.tsv
+               if r[0] not in ("upscale_finish", "upscale_drain")]
+    assert read(run) is None        # a program without the two spans
 
 
 def test_no_stage_span_without_upscale(tmp_path, monkeypatch):
