@@ -10,8 +10,9 @@ stage, against the limit under `upscale.check.limits`:
 - `px_mismatch_pct`: the share of the judged pixels, in %, whose u8 RGB
   differs from the plain reference's (portbench/reference.py);
 - `up_mismatch_pct`: the share of the stage's compared output pixels, in
-  %, whose u8 RGB differs from the plain reference's
-  (portbench/reference_esrgan.py) on the same input.
+  %, whose u8 RGB differs from the plain reference's (the forward of the
+  configuration's `stages/<upscale.arch>.py`, run by
+  portbench/reference_esrgan.py `upscale_tiles`) on the same input.
 
 The judged pixels are a sample drawn from the seed once the window has
 closed: `check.frames` frames of the window, and in each `lit_pixels`
@@ -45,7 +46,7 @@ import time
 import numpy as np
 import torch
 
-from portbench import pngio
+from portbench import pngio, registry
 from portbench import reference as ref
 from portbench.poses import frame_of
 
@@ -96,10 +97,11 @@ def _rng(seed: int, stream: int):
 
 
 def judge(cfg: dict, frames: list, mesh, texture: np.ndarray, seed: int,
-          device, control: str | None = None,
-          weights: str | None = None) -> dict:
+          device, control: str | None = None, weights: str | None = None,
+          root=registry.REPO) -> dict:
     """`frames`: [(pose line, png path, final output path)] of every frame
-    of the window, in order; `weights`: the stage's seeded checkpoint.
+    of the window, in order; `weights`: the stage's seeded checkpoint;
+    `root`: the benchmark whose `stages/` holds the stage's architecture.
     Returns {"numbers": {name: value}, "limits": {...}, "correct": bool,
     "detail": {...}}."""
     if control not in (None, *CONTROLS):
@@ -179,7 +181,7 @@ def judge(cfg: dict, frames: list, mesh, texture: np.ndarray, seed: int,
               "seconds": time.perf_counter() - t0}
     if up:
         n, d = judge_upscale(cfg, frames, ok, final_ok, seed, device,
-                             control, weights)
+                             control, weights, root)
         numbers.update(n)
         limits.update({k: float(v) for k, v in up["check"]["limits"].items()})
         detail["upscale"] = d
@@ -189,8 +191,8 @@ def judge(cfg: dict, frames: list, mesh, texture: np.ndarray, seed: int,
 
 
 def judge_upscale(cfg: dict, frames: list, raw_ok: list, final_ok: list,
-                  seed: int, device, control: str | None,
-                  weights: str) -> tuple:
+                  seed: int, device, control: str | None, weights: str,
+                  root=registry.REPO) -> tuple:
     """({"up_mismatch_pct": %}, detail) of the stage's outputs: the whole
     of the drawn tiles of the drawn frames against the reference on the
     program's raw PNG of each frame."""
@@ -200,7 +202,6 @@ def judge_upscale(cfg: dict, frames: list, raw_ok: list, final_ok: list,
     up = cfg["upscale"]
     chk = up["check"]
     W, H, s = int(cfg["width"]), int(cfg["height"]), int(up["scale"])
-    nb = int(up["num_block"])
     rng = _rng(seed, 0x5CA1E)
     k = min(int(chk["frames"]), len(frames))
     chosen = sorted(rng.choice(len(frames), size=k, replace=False)) if k else []
@@ -232,12 +233,12 @@ def judge_upscale(cfg: dict, frames: list, raw_ok: list, final_ok: list,
         computed += n_px
         batch = rup.tiles(rup.to_float(raw), [origins[t] for t in picks],
                           th, tw)
-        want = rup.upscale_tiles(sd, batch, nb, s, device)
+        want = rup.upscale_tiles(sd, batch, up, device, root=root)
         if control is None:
             img = pngio.read_rgb8(frames[i][2])
             got = [img[ys, xs] for ys, xs, _ in masks]
         else:
-            got = rup.upscale_tiles(sd, batch, nb, s, device,
+            got = rup.upscale_tiles(sd, batch, up, device, root=root,
                                     **low[control])
         for t, w, g, (ys, xs, m) in zip(picks, want, got, masks):
             w = w[:m.shape[0], :m.shape[1]]

@@ -9,12 +9,14 @@ call that issues every frame of the window:
   left out);
 - `altered`: the frame's red channel altered by one where it is made.
 
-The upscale stage's faults wrap the program's `models.esrgan.upscale_u8`,
-the call that upscales every frame:
+The upscale stage's faults wrap the program's
+`models.esrgan.upscale_u8_async`, the call that issues every frame's
+upscale (the driver's stage finishes what it returns, one frame later):
 
 - `upstale`: every output is the first frame's;
 - `bicubic`: the stage replaced by the program's bicubic upsampler;
-- `noblock`: the last RRDB of the network skipped.
+- `noblock`: the last RRDB of the network skipped (RRDBNet's only: a
+  network whose `body` is its list of RRDBs).
 
 `python3 -m portbench.run ... --fault <name>` runs a cell with one of
 them planted; benchmark runs never do.
@@ -64,13 +66,17 @@ def upstale(orig):
 
 def bicubic(orig):
     def upscale(net, img_u8, *a, **k):
+        import torch
+
+        from dsrt_tpu_torch.models.esrgan import PendingUpscale
         from dsrt_tpu_torch.scripts.upsample import upsample_torch
-        return upsample_torch(img_u8, net.scale,
-                              next(net.parameters()).device)
+        return PendingUpscale(torch.from_numpy(upsample_torch(
+            img_u8, net.scale, next(net.parameters()).device)))
     return upscale
 
 
 def noblock(orig):
+    """RRDBNet's only: the network's `body` is its RRDBs."""
     def upscale(net, *a, **k):
         body = net.body
         net.body = body[:-1]
@@ -85,9 +91,9 @@ def noblock(orig):
 FAULTS = {"stale": ("driver", "render_frame_async", stale),
           "half": ("driver", "render_frame_async", half),
           "altered": ("driver", "render_frame_async", altered),
-          "upstale": ("models.esrgan", "upscale_u8", upstale),
-          "bicubic": ("models.esrgan", "upscale_u8", bicubic),
-          "noblock": ("models.esrgan", "upscale_u8", noblock)}
+          "upstale": ("models.esrgan", "upscale_u8_async", upstale),
+          "bicubic": ("models.esrgan", "upscale_u8_async", bicubic),
+          "noblock": ("models.esrgan", "upscale_u8_async", noblock)}
 
 
 def plant(name: str) -> None:

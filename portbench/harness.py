@@ -5,7 +5,8 @@ program, make the stand-in mesh and read the texture (the benchmark's own
 inputs), compile the scene with the program's SceneBuilder as the driver
 does (SBVH, sun on, the configuration's sun radiance, the run's seed),
 where the configuration has an `upscale` stage its seeded weights
-(portbench/weights.py, a checkpoint in the run's directory), and one
+(portbench/weights.py through the benchmark's `stages/<upscale.arch>.py`,
+a checkpoint in the run's directory), and one
 warm-up call of the driver at the cell's frame size and spp, stage and
 all.
 
@@ -206,7 +207,8 @@ def run_cell(bench, cell_name: str, seed: int, seconds: float, trace: bool,
         wpath = None
         if "upscale" in cfg:
             wpath = weightsmod.write(cfg["upscale"], seed, device,
-                                     os.path.join(work, "upscale.pth"))
+                                     os.path.join(work, "upscale.pth"),
+                                     bench.root)
             if device == "cuda":
                 torch.cuda.synchronize()
             marks.append(("upscale_weights", time.perf_counter()))
@@ -264,7 +266,8 @@ def run_cell(bench, cell_name: str, seed: int, seconds: float, trace: bool,
             torch.cuda.empty_cache()
         verdict = check.judge(
             cfg, [(f.line, f.png, f.final) for f in run.frames], mesh,
-            texture, seed, device, control=control, weights=wpath)
+            texture, seed, device, control=control, weights=wpath,
+            root=bench.root)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

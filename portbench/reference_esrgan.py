@@ -24,8 +24,12 @@ post-process runs it, SURVEY.md section 2.4):
   0..255, on RGB rows read top first;
 - seeded weights in place of the release file.
 
-`dtype` torch.bfloat16, or `tf32` True, computes the same in the lower
-precision: the check's controls.  Imports nothing of the program.
+The tile grid, the stitch's owner map, the u8 conversions and
+`upscale_tiles` are every architecture's: `upscale_tiles` runs the
+`forward` of the configuration's `stages/<upscale.arch>.py` (for RRDBNet,
+`forward` here).  `dtype` torch.bfloat16, or `tf32` True, computes the
+same in the lower precision: the check's controls.  Imports nothing of
+the program.
 """
 
 from __future__ import annotations
@@ -35,6 +39,8 @@ import contextlib
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from portbench import registry
 
 SLOPE = 0.2
 RES = 0.2
@@ -133,17 +139,19 @@ def to_u8(y: torch.Tensor) -> torch.Tensor:
     return torch.round(y.float() * 255.0).clamp(0, 255).to(torch.uint8)
 
 
-def upscale_tiles(sd: dict, batch: np.ndarray, num_block: int, scale: int,
-                  device, dtype=torch.float32,
-                  tf32: bool = False) -> np.ndarray:
+def upscale_tiles(sd: dict, batch: np.ndarray, up: dict, device,
+                  dtype=torch.float32, tf32: bool = False,
+                  root=registry.REPO) -> np.ndarray:
     """(N, th, tw, 3) float tiles -> (N, s*th, s*tw, 3) uint8, one tile a
-    forward, in `dtype` (and TF32 on or off)."""
+    forward of the architecture `up["arch"]` of the benchmark under
+    `root`, in `dtype` (and TF32 on or off)."""
+    arch = registry.stage(up.get("arch"), root)
     w = {k: v.to(device, dtype) for k, v in sd.items()}
     out = []
     with torch.no_grad(), precision(tf32):
         for t in batch:
             x = torch.as_tensor(np.ascontiguousarray(t.transpose(2, 0, 1))
                                 )[None].to(device, dtype)
-            out.append(to_u8(forward(w, x, num_block, scale))[0]
+            out.append(to_u8(arch.forward(w, x, up))[0]
                        .permute(1, 2, 0).cpu().numpy())
     return np.stack(out)

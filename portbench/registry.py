@@ -8,10 +8,15 @@
 - a metric, end-to-end or per-layer, is read by
   `<bench>/metrics/<name>.py`, a module with `read(run) -> float | None`
   (or, where there is no such file, by the reader of the name cut at its
-  last dot).
+  last dot);
+- an upscale stage's architecture, the configuration's `upscale.arch`, is
+  `<bench>/stages/<arch>.py`, a module with `make_weights(up, seed,
+  device)`, `forward(sd, x, up)`, `tile_flops(up, th, tw)` and
+  `param_count(up)` (README.md, "an upscale architecture").
 
 `Bench(root)` looks under `root` (a checkout, or any directory laid out
-the same way), so a new cell, mix or metric is added by adding files.
+the same way), so a new cell, mix, metric or architecture is added by
+adding files.
 """
 
 from __future__ import annotations
@@ -23,6 +28,24 @@ from pathlib import Path
 
 PKG = "portbench"
 REPO = Path(__file__).resolve().parent.parent
+
+
+def _load(path: Path, name: str):
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def stage(arch: str, root=REPO):
+    """The module of the upscale architecture `arch`:
+    `<root>/portbench/stages/<arch>.py`; ValueError naming that file where
+    there is none."""
+    path = Path(root) / PKG / "stages" / f"{arch}.py"
+    if not isinstance(arch, str) or "/" in arch or not path.is_file():
+        raise ValueError(f"unknown stage architecture {arch!r}: no file "
+                         f"{path}")
+    return _load(path, f"{PKG}_stage_{arch}")
 
 
 class Bench:
@@ -73,24 +96,28 @@ class Bench:
         return self.dir / "metrics" / f"{stem}.py"
 
     def reader(self, name: str):
-        path = self.reader_file(name)
-        spec = importlib.util.spec_from_file_location(
-            f"{PKG}_metric_{name.replace('.', '_')}", path)
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        return mod.read
+        return _load(self.reader_file(name),
+                     f"{PKG}_metric_{name.replace('.', '_')}").read
 
 
 def copy_with_cell(dest, cfg: dict, mix_name: str, mix: dict, cell: str,
-                   like: str) -> Path:
+                   like: str, files: dict | None = None) -> Path:
     """A copy of the benchmark under `dest`/bench (BENCHMARK.json and
     portbench without its tests) with, added as files and entries, the
     configuration `cfg` (named by its "name"), the traffic mix `mix`
-    named `mix_name` and the cell `cell` over them, which reports the
-    end-to-end metrics that the cell `like` reports."""
+    named `mix_name`, the cell `cell` over them, which reports the
+    metrics, end-to-end and per-layer, whose `workloads` list the cell
+    `like`, and `files` ({path under portbench: text}, none of them a
+    file the benchmark has)."""
     root = Path(dest) / "bench"
     shutil.copytree(REPO / PKG, root / PKG,
                     ignore=shutil.ignore_patterns("__pycache__", "tests"))
+    for rel, text in (files or {}).items():
+        path = root / PKG / rel
+        if path.exists():
+            raise FileExistsError(f"{path}: files are added, not replaced")
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(text)
     spec = json.loads((REPO / "BENCHMARK.json").read_text())
     name = cfg["name"]
     (root / PKG / "configs" / f"{name}.json").write_text(json.dumps(cfg))
@@ -100,7 +127,7 @@ def copy_with_cell(dest, cfg: dict, mix_name: str, mix: dict, cell: str,
                             "reduced": [], "why": "test"})
     spec["workloads"].append({"name": cell, "config": name,
                               "traffic": mix_name, "chips": 1, "why": "test"})
-    for m in spec["end_to_end"]:
+    for m in spec["end_to_end"] + spec["per_layer"]:
         if like in m.get("workloads", []):
             m["workloads"].append(cell)
     (root / "BENCHMARK.json").write_text(json.dumps(spec))

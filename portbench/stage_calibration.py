@@ -1,20 +1,20 @@
 """Readings for an upscale stage's limit, taken through the harness.
 
     python3 -m portbench.stage_calibration --out readings.jsonl \
-        [--base rdv_a_450p_250spp] [--poses 93 99] [--sound 10] \
-        [--controls 3] [--faults upstale bicubic noblock] [--seed0 N]
+        [--config rdv_a_x4] [--poses 93 99] [--sound 10] [--controls 3] \
+        [--faults upstale bicubic noblock] [--seed0 N]
 
 Adds, in a copy of the benchmark in a temporary directory, the
-configuration `--base` with the stage `STAGE` (RealESRGAN_x4plus's
-widths, the seeded recipe, the JAX package's 128-pixel tile grid) and a
-cell over the poses [first, stop) once, then runs that cell in this
+configuration `--config` as its file has it (the render half and the
+`upscale` stage, with `--changes` and `--stage` applied) as `x4cal`, and
+a cell over the poses [first, stop) once, then runs that cell in this
 process through `harness.run_cell` with a one-call window: on `--sound`
 seeds as it is, on `--controls` seeds under each of check.CONTROLS, and
-once under each stage fault.  The run under test is the program's
-`models.esrgan.upscale_u8`, reached through the driver's `--upscale`.
-The program has no weights flag yet, so its weight lookup
-(`scripts.upsample.fetch_weights`) is pointed at the checkpoint the
-harness wrote, and downloading is refused.  One JSON line a run goes to
+once under each stage fault.  The run under test is the program's stage,
+reached through the driver's `--upscale` with the seeded checkpoint that
+the configuration's `driver_flags` hand it (`--upscale_weights
+{weights}`).  A new architecture's limit is calibrated by naming its
+configuration; `noblock` is RRDBNet's only.  One JSON line a run goes to
 `--out`: the check's numbers and limits, the stage's detail (with
 `u8_in_1_254_pct`, the reference's u8 values inside 1..254) and the
 run's set-up, window and peak memory.
@@ -23,55 +23,16 @@ run's set-up, window and peak memory.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import importlib
 import json
 import sys
 import tempfile
 import time
-import urllib.request
 
-from portbench import check, faults, harness, weights
+from portbench import check, faults, harness
 from portbench.registry import Bench, copy_with_cell
 
 CELL = "x4cal.poses"
-STAGE = {"arch": "RRDBNet", "num_in_ch": 3, "num_out_ch": 3,
-         "num_feat": 64, "num_block": 23, "num_grow_ch": 32, "scale": 4,
-         "tile": 128, "overlap": 8,
-         "weights": {"init": "he_normal", "gain": 0.3,
-                     "conv_last_bias": 0.5},
-         "driver_flags": ["--upscale"], "output_suffix": "_upscaled",
-         "check": {"frames": 6, "tiles": 8,
-                   "limits": {"up_mismatch_pct": 0.0}}}
-
-
-@contextlib.contextmanager
-def program_reads_harness_weights():
-    """For the scope: the program's weight lookup returns the checkpoint
-    the harness last wrote, and downloading raises."""
-    from dsrt_tpu_torch.scripts import upsample
-    written = []
-    write = weights.write
-
-    def spy(*a, **k):
-        written.append(write(*a, **k))
-        return written[-1]
-
-    def refuse(*a, **k):
-        raise OSError("downloading is refused here")
-    patches = [(weights, "write", spy),
-               (upsample, "fetch_weights",
-                lambda scale, allow_download=True: written[-1]),
-               (urllib.request, "urlretrieve", refuse),
-               (urllib.request, "urlopen", refuse)]
-    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
-    for obj, name, new in patches:
-        setattr(obj, name, new)
-    try:
-        yield
-    finally:
-        for obj, name, old in saved:
-            setattr(obj, name, old)
 
 
 def one(bench, seed: int, device: str, control=None, fault=None) -> dict:
@@ -105,7 +66,8 @@ def one(bench, seed: int, device: str, control=None, fault=None) -> dict:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="portbench.stage_calibration")
     p.add_argument("--out", required=True)
-    p.add_argument("--base", default="rdv_a_450p_250spp")
+    p.add_argument("--config", default="rdv_a_x4",
+                   help="the configuration whose stage is calibrated")
     p.add_argument("--poses", type=int, nargs=2, default=(93, 99))
     p.add_argument("--sound", type=int, default=10)
     p.add_argument("--controls", type=int, default=3)
@@ -113,24 +75,26 @@ def main(argv=None) -> int:
                    default=["upstale", "bicubic", "noblock"])
     p.add_argument("--seed0", type=int, default=3_180_000_000)
     p.add_argument("--stage", default="{}",
-                   help="JSON of keys to change in STAGE")
+                   help="JSON of keys to change in the configuration's "
+                        "upscale stage")
     p.add_argument("--changes", default=json.dumps(
         {"check": {"frames": 2, "candidates": 8192, "lit_pixels": 64,
                    "any_pixels": 16, "limits": {"frames_missing": 0,
                                                 "px_mismatch_pct": 2.0}}}),
-        help="JSON of top-level keys to change in the --base config (by "
+        help="JSON of top-level keys to change in the configuration (by "
              "default the render's check on 2 frames)")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
-    stage = dict(STAGE, **json.loads(args.stage))
+    cfg = Bench().config(args.config)
+    if "upscale" not in cfg:
+        p.error(f"configuration {args.config!r} has no upscale stage")
+    stage = dict(cfg["upscale"], **json.loads(args.stage))
     plan = [(args.seed0 + i, None, None) for i in range(args.sound)]
     plan += [(args.seed0 + 100 + i, c, None) for c in check.CONTROLS
              for i in range(args.controls)]
     plan += [(args.seed0 + 200 + i, None, f)
              for i, f in enumerate(args.faults)]
-    with tempfile.TemporaryDirectory() as tmp, \
-            program_reads_harness_weights():
-        cfg = Bench().config(args.base)
+    with tempfile.TemporaryDirectory() as tmp:
         cfg.update(json.loads(args.changes), name="x4cal", upscale=stage)
         first, stop = args.poses
         bench = Bench(copy_with_cell(

@@ -15,7 +15,9 @@ PKG = REPO / "portbench"
 FORBIDDEN = {"jax", "jaxlib", "flax", "dsrt_tpu", "bench", "benchmarks"}
 # the reference side: what decides `correct` apart from the program's PNGs
 REFERENCE = ["reference", "reference_esrgan", "weights", "poses", "standin",
-             "pngio", "check"]
+             "pngio", "check", "registry", "work_esrgan"]
+# each upscale architecture's file: its weights, reference and work count
+STAGES = sorted(p.stem for p in (PKG / "stages").glob("*.py"))
 
 
 def imports(path: Path) -> set:
@@ -35,7 +37,8 @@ def test_no_module_imports_jax_or_the_jax_package(path):
     assert not imports(path) & FORBIDDEN
 
 
-@pytest.mark.parametrize("name", REFERENCE)
+@pytest.mark.parametrize("name", REFERENCE
+                         + [f"stages/{n}" for n in STAGES])
 def test_reference_side_imports_nothing_of_the_program(name):
     assert "dsrt_tpu_torch" not in imports(PKG / f"{name}.py")
 
@@ -43,6 +46,7 @@ def test_reference_side_imports_nothing_of_the_program(name):
 def test_reference_side_loads_nothing_of_the_program():
     code = ("import sys\n"
             + "".join(f"import portbench.{n}\n" for n in REFERENCE)
+            + "".join(f"portbench.registry.stage({n!r})\n" for n in STAGES)
             + "tops = {m.split('.')[0] for m in sys.modules}\n"
             "print(sorted(tops & {'dsrt_tpu_torch', 'dsrt_tpu', 'jax'}))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

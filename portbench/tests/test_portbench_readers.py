@@ -9,6 +9,8 @@ from portbench.harness import Frame, Run
 from portbench.registry import Bench
 
 K = "void dsrt::path_render_kernel<0>(dsrt::PathArgs)"
+RDB = "void rdb_conv_kernel<32, 64, 2, 4, 1>(RdbConvArgs)"
+RDV_A_X4_FLOPS = 16_447_954_747_392      # work_esrgan, a frame of rdv_a_x4
 
 
 def canned_events():
@@ -32,7 +34,13 @@ def canned_events():
 
 def canned_run():
     run = Run()
-    run.trace = tracemod.reduce(canned_events())
+    # the upscale stage's device work by program span (Trace.span_ops) and
+    # its dense-block kernel, beside the canned trace's own
+    tr = tracemod.reduce(canned_events())
+    run.trace = tr._replace(
+        span_ops={"upscale": (0.004, 8), "upscale_forward": (1.596, 1400),
+                  "launch": (0.005, 2)},
+        ops=dict(tr.ops, **{RDB: (1.2, 1380)}))
     run.window_s = 4.0
     run.setup_s = 12.5
     run.scene_compile_s = 1.75
@@ -43,6 +51,9 @@ def canned_run():
                ("render", 0.2), ("encode", 0.02)]
     run.tsv += [("inputs", 0.001), ("issue", 0.003), ("launch", 0.002),
                 ("wait", 0.004)] * 4 + [("run", 3.5)]
+    run.tsv += [("upscale", 0.06), ("upscale_forward", 0.05),
+                ("upscale_encode", 0.35)] * 4
+    run.tsv += [("upscale_finish", 0.01)] * 3 + [("upscale_drain", 0.3)]
     return run
 
 
@@ -75,6 +86,13 @@ EXPECT = {
     "driver.wait_ms": 16.0 / 4,
     "render.host_ms": 12.0 / 4,
     "path_kernel.wrapper_ms": 8.0 / 4,
+    "upscale.device_ms": 1600.0 / 4,         # span_ops upscale + forward
+    "upscale.host_ms": 240.0 / 4,
+    "upscale.encode_ms": 1400.0 / 4,
+    "upscale.forwards": 4 / 4,
+    "upscale.mfu.rdv_a_x4": RDV_A_X4_FLOPS * 4 / (1.6 * 67e12),
+    "upscale.dense_launches": 1380 / 4,
+    "upscale.overlapped": 3 / 4,             # 3 finished behind a forward
 }
 
 
@@ -91,7 +109,9 @@ def test_every_benchmark_metric_has_a_case_here():
 
 
 @pytest.mark.parametrize("name", ["path_kernel.device_ms",
-                                  "path_kernel.launches", "device.idle_share"])
+                                  "path_kernel.launches", "device.idle_share",
+                                  "upscale.device_ms", "upscale.mfu.rdv_a_x4",
+                                  "upscale.dense_launches"])
 def test_trace_readers_give_nothing_without_a_trace(name):
     run = canned_run()
     run.trace = None

@@ -1,9 +1,11 @@
 """A configuration's upscale stage: the seeded weights, the plain
 reference against the program's network, tile grid and stitch, the
-driver's arguments, and the stage judged through the harness in a tiny
-cell on the CPU (a sound run, the control, the stage's faults, a deleted
-output)."""
+driver's arguments, the stage judged through the harness in a tiny cell
+on the CPU (a sound run, the control, the stage's faults, a deleted
+output), an architecture added by files alone, and RRDBNet's weights,
+reference and work as they were before architectures were files."""
 
+import hashlib
 import json
 import os
 import urllib.request
@@ -15,7 +17,8 @@ import torch
 from dsrt_tpu_torch.models import esrgan
 from dsrt_tpu_torch.scripts import upsample
 from dsrt_tpu_torch.utils import image_io
-from portbench import faults, harness, reference_esrgan, weights
+from portbench import faults, harness, reference_esrgan, registry, weights
+from portbench import work_esrgan
 from portbench.registry import Bench
 from portbench.tests import tinybench
 
@@ -78,7 +81,7 @@ def test_reference_equals_the_program_network(widths):
         assert torch.equal(net.eval()(x[None]),
                            reference_esrgan.forward(sd, x[None], nb, 4))
     got = reference_esrgan.upscale_tiles(
-        sd, reference_esrgan.to_float(img)[None], nb, 4, "cpu")[0]
+        sd, reference_esrgan.to_float(img)[None], up, "cpu")[0]
     assert np.array_equal(got, esrgan.upscale_u8(net, img))
 
 
@@ -183,23 +186,22 @@ def test_driver_flags_are_appended_with_placeholders_filled():
 
 @pytest.fixture
 def program_reads_the_harness_weights(monkeypatch):
-    """The program has no weights flag yet: its weight lookup,
-    `scripts.upsample.fetch_weights`, returns the checkpoint the harness
-    wrote in set-up, and nothing is downloaded."""
-    written = []
-    write = weights.write
+    """The checkpoints the program loads, in order: the driver gets the
+    one the harness wrote in set-up through `--upscale_weights
+    {weights}`; its own weight lookup and downloading raise."""
+    loaded = []
+    load = esrgan.load_torch_checkpoint
 
-    def spy(*a, **k):
-        written.append(write(*a, **k))
-        return written[-1]
+    def spy(path, *a, **k):
+        loaded.append(path)
+        return load(path, *a, **k)
 
     def refuse(*a, **k):
         raise OSError("no download here")
-    monkeypatch.setattr(weights, "write", spy)
-    monkeypatch.setattr(upsample, "fetch_weights",
-                        lambda scale, allow_download=True: written[-1])
+    monkeypatch.setattr(esrgan, "load_torch_checkpoint", spy)
+    monkeypatch.setattr(upsample, "fetch_weights", refuse)
     monkeypatch.setattr(urllib.request, "urlretrieve", refuse)
-    return written
+    return loaded
 
 
 @pytest.fixture(scope="module")
@@ -222,7 +224,9 @@ def test_sound_stage_run_is_correct(tiny_x4,
     assert up["u8_in_1_254_pct"] > 50
     assert res["check"]["up_mismatch_pct"] == {"value": 0.0, "limit": 5.0}
     assert "upscale_weights" in run.setup_phases
-    assert program_reads_the_harness_weights
+    loaded = program_reads_the_harness_weights
+    assert loaded and all(os.path.basename(p) == "upscale.pth"
+                          for p in loaded)
     assert res["failed"] == 0 and run.written == len(run.frames) >= 3
     for f in run.frames:
         assert f.final == os.path.join(os.path.dirname(f.png) + "_upscaled",
@@ -244,7 +248,7 @@ def test_stage_control_is_not_correct(tiny_x4,
                               "block_left_out"])
 def test_broken_stage_is_not_correct(tiny_x4, monkeypatch, fault,
                                      program_reads_the_harness_weights):
-    monkeypatch.setattr(esrgan, "upscale_u8", esrgan.upscale_u8)
+    monkeypatch.setattr(esrgan, "upscale_u8_async", esrgan.upscale_u8_async)
     faults.plant(fault)
     res, _, verdict = harness.run_cell(tiny_x4, tinybench.TINY, 2 ** 31 + 3,
                                        0.5, False, device="cpu")
@@ -274,15 +278,21 @@ def test_missing_upscaled_png_is_not_correct(tiny_x4, monkeypatch,
 
 
 
-def test_stage_calibration_reads_the_stage(tmp_path):
-    """The calibration tool at a tiny size: a sound run reads 0, the
-    bfloat16 control does not, and the program's weight lookup is left
-    as it was."""
+def test_stage_calibration_reads_the_stage(tmp_path, monkeypatch):
+    """The calibration tool at a tiny size, on rdv_a_x4's stage (its
+    depth, recipe, grid and `--upscale_weights {weights}`) at narrow
+    widths: a sound run reads 0, the bfloat16 control does not, and the
+    program's weight lookup is left as it was."""
     from portbench import stage_calibration
+
+    def refuse(*a, **k):
+        raise OSError("no download here")
+    monkeypatch.setattr(urllib.request, "urlretrieve", refuse)
     lookup = upsample.fetch_weights
     out = tmp_path / "readings.jsonl"
     stage_calibration.main([
-        "--out", str(out), "--device", "cpu", "--sound", "1",
+        "--out", str(out), "--device", "cpu", "--config", "rdv_a_x4",
+        "--sound", "1",
         "--controls", "1", "--faults", "--poses", "97", "99",
         "--stage", json.dumps({k: tinybench.UPSCALE[k] for k in
                                ("num_feat", "num_grow_ch", "check")}),
@@ -299,3 +309,207 @@ def test_stage_calibration_reads_the_stage(tmp_path):
     assert rows["bf16"]["numbers"]["up_mismatch_pct"] > 5.0
     assert rows["sound"]["upscale"]["u8_in_1_254_pct"] > 50
     assert upsample.fetch_weights is lookup
+
+
+def test_stage_calibration_refuses_a_configuration_without_a_stage(tmp_path):
+    from portbench import stage_calibration
+    with pytest.raises(SystemExit):
+        stage_calibration.main(["--out", str(tmp_path / "r.jsonl"),
+                                "--config", "rdv_a_450p_250spp"])
+
+
+# An architecture of two convs, as a later configuration adds one: its file
+# under stages/, named by the configuration's upscale.arch.
+TWO_CONV = '''"""Two convs: conv_first (3 -> num_feat, 3x3), leaky ReLU 0.2,
+nearest x scale, conv_hr (num_feat -> 3, 3x3)."""
+from collections import OrderedDict
+
+import torch
+import torch.nn.functional as F
+
+
+def shapes(up):
+    nf = int(up["num_feat"])
+    return [("conv_first", nf, 3), ("conv_hr", 3, nf)]
+
+
+def make_weights(up, seed, device):
+    rec = up["weights"]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    sd = OrderedDict()
+    for name, co, ci in shapes(up):
+        std = float(rec["gain"]) * (2.0 / (ci * 9)) ** 0.5
+        sd[name + ".weight"] = std * torch.randn(
+            co, ci, 3, 3, generator=gen, device=device)
+        sd[name + ".bias"] = torch.full((co,), float(rec["bias"]),
+                                        device=device)
+    return sd
+
+
+def forward(sd, x, up):
+    y = F.leaky_relu(F.conv2d(x, sd["conv_first.weight"],
+                              sd["conv_first.bias"], padding=1), 0.2)
+    y = F.interpolate(y, scale_factor=int(up["scale"]), mode="nearest")
+    return F.conv2d(y, sd["conv_hr.weight"], sd["conv_hr.bias"], padding=1)
+
+
+def tile_flops(up, th, tw):
+    area = {"conv_first": 1, "conv_hr": int(up["scale"]) ** 2}
+    return float(sum(2 * 9 * co * ci * area[name] * th * tw
+                     for name, co, ci in shapes(up)))
+
+
+def param_count(up):
+    return sum(co * (ci * 9 + 1) for _, co, ci in shapes(up))
+'''
+
+# the limit 0: on the CPU the program's network is the reference's
+# arithmetic, and sound runs read 0; two convs see few pixels, so a stale
+# frame differs from the due one on a few percent of the output only
+TWO_CONV_STAGE = dict(tinybench.UPSCALE, arch="TwoConv", num_feat=8,
+                      weights={"gain": 1.0, "bias": 0.5},
+                      check={"frames": 2, "tiles": 4,
+                             "limits": {"up_mismatch_pct": 0.0}})
+for _key in ("num_block", "num_grow_ch"):
+    del TWO_CONV_STAGE[_key]
+
+
+class TwoConvNet(torch.nn.Module):
+    """The program's side of TWO_CONV, standing in for the network that
+    the change adding such an architecture to the program would bring:
+    the attributes the program's tile path reads (`scale`, `conv_hr`)."""
+
+    def __init__(self, sd: dict, scale: int):
+        super().__init__()
+        nf = sd["conv_first.weight"].shape[0]
+        self.scale = scale
+        self.conv_first = torch.nn.Conv2d(3, nf, 3, 1, 1)
+        self.conv_hr = torch.nn.Conv2d(nf, 3, 3, 1, 1)
+        self.load_state_dict(sd)
+
+    def forward(self, x):
+        y = torch.nn.functional.leaky_relu(self.conv_first(x), 0.2)
+        y = torch.nn.functional.interpolate(y, scale_factor=self.scale,
+                                            mode="nearest")
+        return self.conv_hr(y)
+
+
+def _tree(root) -> dict:
+    base = root / "portbench"
+    return {str(f.relative_to(base)): f.read_bytes()
+            for f in sorted(base.rglob("*")) if f.is_file()
+            and "__pycache__" not in f.parts and "tests" not in f.parts}
+
+
+def _appends_only(old, new) -> bool:
+    """`new` is `old` with entries appended to its lists (at any depth)."""
+    if isinstance(old, dict):
+        return isinstance(new, dict) and set(old) == set(new) and all(
+            _appends_only(old[k], new[k]) for k in old)
+    if isinstance(old, list):
+        return isinstance(new, list) and len(new) >= len(old) and all(
+            _appends_only(a, b) for a, b in zip(old, new))
+    return old == new
+
+
+@pytest.mark.parametrize("fault", [None, "upstale"],
+                         ids=["sound", "state_unchanged"])
+def test_an_architecture_is_added_by_files(tmp_path, monkeypatch, fault):
+    """A configuration naming an architecture of its own, TwoConv, with its
+    file under stages/ and a cell over it, all added to a copy as files;
+    the program runs the network through its stage (its loader pointed at
+    TwoConvNet).  The copy adds files and entries only; a CPU window is
+    judged correct, and not correct with `upstale` planted."""
+    root = tinybench.make(tmp_path, width=16, height=9,
+                          upscale=TWO_CONV_STAGE,
+                          files={"stages/TwoConv.py": TWO_CONV})
+    here, there = _tree(registry.REPO), _tree(root)
+    assert all(there.get(k) == v for k, v in here.items())
+    assert set(there) - set(here) == {"stages/TwoConv.py", "configs/tiny.json",
+                                      "traffic/tail3.json"}
+    assert _appends_only(
+        json.loads((registry.REPO / "BENCHMARK.json").read_text()),
+        json.loads((root / "BENCHMARK.json").read_text()))
+    with pytest.raises(ValueError, match="TwoConv.py"):
+        weights.make(TWO_CONV_STAGE, 1, "cpu")      # not in the tree
+
+    def load(path, num_block=23, scale=4, device=None):
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+        return TwoConvNet(sd, scale).to(device)
+
+    def refuse(*a, **k):
+        raise OSError("no download here")
+    monkeypatch.setattr(esrgan, "load_torch_checkpoint", load)
+    monkeypatch.setattr(urllib.request, "urlretrieve", refuse)
+    if fault:
+        monkeypatch.setattr(esrgan, "upscale_u8_async",
+                            esrgan.upscale_u8_async)
+        faults.plant(fault)
+    res, run, verdict = harness.run_cell(Bench(root), tinybench.TINY,
+                                         2 ** 31 + 7, 0.5, False,
+                                         device="cpu")
+    up = verdict["detail"]["upscale"]
+    assert up["frames_judged"] == 2 and up["u8_in_1_254_pct"] > 50
+    if fault is None:
+        assert res["correct"] is True, verdict
+        assert verdict["numbers"]["up_mismatch_pct"] == 0.0
+    else:
+        assert res["correct"] is False, verdict
+        assert verdict["numbers"]["up_mismatch_pct"] > \
+            verdict["limits"]["up_mismatch_pct"]
+        assert verdict["numbers"]["px_mismatch_pct"] == 0.0
+    cfg = Bench(root).config("tiny")
+    assert work_esrgan.frame_flops(cfg, root) == 2 * 9 * (8 * 3 + 3 * 8 * 16) \
+        * 16 * 9
+    assert work_esrgan.frame_bytes(cfg, root) == 4 * (
+        8 * 28 + 3 * 73 + 16 * 9 * (3 + 3 * 16))
+
+
+def test_unknown_architecture_names_the_file_looked_for():
+    with pytest.raises(ValueError, match=r"stages/NoSuchNet\.py"):
+        weights.make(dict(tinybench.UPSCALE, arch="NoSuchNet"), 1, "cpu")
+    with pytest.raises(ValueError, match="unknown stage architecture"):
+        registry.stage("../configs/rdv_a_x4")
+
+
+# sha256 over each entry's name, shape and float32 bytes, in order, of
+# weights.make(rdv_a_x4's upscale, seed, "cpu") at the commit before
+# architectures became files
+RDV_A_X4_WEIGHTS = {
+    3180000000: "db94008aa36ebf5243ca9827a582192314e91da65cd1a870951ff65d162ff852",
+    2 ** 31 + 17: "ba622cd073abb97a91401b24fafef7fd6bf4ebb4df7924e9276a3eaef0d1cac4",
+}
+
+
+@pytest.mark.parametrize("seed", sorted(RDV_A_X4_WEIGHTS))
+def test_rrdbnet_weights_are_unchanged(seed):
+    sd = weights.make(Bench().config("rdv_a_x4")["upscale"], seed, "cpu")
+    h = hashlib.sha256()
+    for k, v in sd.items():
+        h.update(k.encode())
+        h.update(str(tuple(v.shape)).encode())
+        h.update(v.contiguous().numpy().tobytes())
+    assert len(sd) == 702 and h.hexdigest() == RDV_A_X4_WEIGHTS[seed]
+
+
+def test_rrdbnet_work_is_unchanged():
+    cfg = Bench().config("rdv_a_x4")
+    assert work_esrgan.frame_flops(cfg) == 16_447_954_747_392
+    assert work_esrgan.frame_bytes(cfg) == 160_377_356
+    assert work_esrgan.frame_bound_s(cfg) == pytest.approx(0.245491862,
+                                                           rel=1e-9)
+
+
+@pytest.mark.parametrize("scale", [4, 2])
+def test_rrdbnet_stage_forward_is_the_reference(scale):
+    up = stage(num_feat=8, num_block=2, num_grow_ch=4, scale=scale)
+    arch = registry.stage("RRDBNet")
+    sd = arch.make_weights(up, 2 ** 31 + 3, "cpu")
+    assert list(sd) == list(weights.make(up, 2 ** 31 + 3, "cpu"))
+    x = torch.rand(2, 3, 12, 16, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        assert torch.equal(arch.forward(sd, x, up),
+                           reference_esrgan.forward(sd, x, 2, scale))
+    assert arch.tile_flops(up, 12, 16) == \
+        work_esrgan.flops_per_input_pixel(up) * 12 * 16

@@ -21,19 +21,20 @@ UPSCALE = {"arch": "RRDBNet", "num_in_ch": 3, "num_out_ch": 3,
            "tile": 128, "overlap": 8,
            "weights": {"init": "he_normal", "gain": 0.3,
                        "conv_last_bias": 0.5},
-           "driver_flags": ["--upscale"], "output_suffix": "_upscaled",
+           "driver_flags": ["--upscale", "--upscale_weights", "{weights}"],
+           "output_suffix": "_upscaled",
            "check": {"frames": 2, "tiles": 4,
                      "limits": {"up_mismatch_pct": 5.0}}}
 
 
 def make(tmp: Path, width: int = 64, height: int = 36, spp: int = 6,
          chunk_spp: int = 2, window_poses=(96, 99),
-         upscale: dict | None = None) -> Path:
+         upscale: dict | None = None, files: dict | None = None) -> Path:
     """BENCHMARK.json and portbench's data under `tmp`, plus the config
     `tiny` (the detail-1 stand-in at width x height, spp in chunks of
-    chunk_spp, with the `upscale` block where one is given) and the mix
-    `tail3` (poses [window_poses)), as cell tiny.tail3: all of it files
-    added to a copy."""
+    chunk_spp, with the `upscale` block where one is given), the mix
+    `tail3` (poses [window_poses)), as cell tiny.tail3, and `files`
+    ({path under portbench: text}): all of it files added to a copy."""
     cfg = json.loads((REPO / PKG / "configs" /
                       "rdv_b_1080p_1000spp.json").read_text())
     cfg.update(name="tiny", width=width, height=height, spp=spp,
@@ -49,4 +50,4 @@ def make(tmp: Path, width: int = 64, height: int = 36, spp: int = 6,
     return copy_with_cell(tmp, cfg, "tail3",
                           {"poses": "data/poses99.txt", "first": first,
                            "stop": stop, "stride": 1, "repeat": 1},
-                          TINY, "rdv_b.close6")
+                          TINY, "rdv_b.close6", files)

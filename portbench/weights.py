@@ -1,17 +1,20 @@
 """Seeded weights for a configuration's upscale stage.
 
 The benchmark makes the stage's weights from the run's seed, as it makes
-the mesh, and hands the program a checkpoint file.  The recipe is the
-configuration's `upscale.weights`: every conv kernel He-normal (standard
-deviation sqrt(2 / fan_in), fan_in = input channels x 9) times `gain`,
-every bias zero but `conv_last`'s, which is `conv_last_bias`.
+the mesh, and hands the program a checkpoint file.  `make` draws them
+through the architecture's file, `stages/<upscale.arch>.py`
+(`make_weights`), from the recipe under the configuration's
+`upscale.weights`, in the layout of the architecture's release file.
 
-The file is a basicsr-layout RRDBNet state dict (`conv_first`,
-`body.N.rdbJ.convI`, `conv_body`, `conv_up1`, `conv_up2`, `conv_hr`,
-`conv_last`; OIHW kernels, float32), the layout of Real-ESRGAN's release
-files.  The draws are made on the run's device by one seeded
-`torch.Generator` in a few large calls, so one seed gives one set of
-weights on one kind of device.  Imports nothing of the program.
+RRDBNet's recipe (`rrdbnet`): every conv kernel He-normal (standard
+deviation sqrt(2 / fan_in), fan_in = input channels x 9) times `gain`,
+every bias zero but `conv_last`'s, which is `conv_last_bias`, in a
+basicsr-layout state dict (`conv_first`, `body.N.rdbJ.convI`,
+`conv_body`, `conv_up1`, `conv_up2`, `conv_hr`, `conv_last`; OIHW
+kernels, float32), the layout of Real-ESRGAN's release files.  The draws
+are made on the run's device by one seeded `torch.Generator` in a few
+large calls, so one seed gives one set of weights on one kind of device.
+Imports nothing of the program.
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ from __future__ import annotations
 from collections import OrderedDict
 
 import torch
+
+from portbench import registry
 
 
 def conv_shapes(up: dict) -> list:
@@ -39,12 +44,19 @@ def conv_shapes(up: dict) -> list:
     return out
 
 
-def make(up: dict, seed: int, device) -> "OrderedDict[str, torch.Tensor]":
+def make(up: dict, seed: int, device,
+         root=registry.REPO) -> "OrderedDict[str, torch.Tensor]":
     """The state dict of the recipe `up["weights"]` drawn from `seed` on
-    `device`."""
+    `device` by the architecture `up["arch"]` of the benchmark under
+    `root` (ValueError naming the file looked for where it has none)."""
+    return registry.stage(up.get("arch"), root).make_weights(up, seed,
+                                                             device)
+
+
+def rrdbnet(up: dict, seed: int, device) -> "OrderedDict[str, torch.Tensor]":
+    """RRDBNet's state dict of the recipe `up["weights"]` drawn from
+    `seed` on `device`."""
     rec = up["weights"]
-    if up.get("arch") != "RRDBNet":
-        raise ValueError(f"unknown stage architecture {up.get('arch')!r}")
     if rec.get("init") != "he_normal":
         raise ValueError(f"unknown weight init {rec.get('init')!r}")
     shapes = conv_shapes(up)
@@ -69,9 +81,10 @@ def make(up: dict, seed: int, device) -> "OrderedDict[str, torch.Tensor]":
     return sd
 
 
-def write(up: dict, seed: int, device, path: str) -> str:
-    """Write the seeded checkpoint to `path`; returns `path`."""
-    torch.save(make(up, seed, device), path)
+def write(up: dict, seed: int, device, path: str,
+          root=registry.REPO) -> str:
+    """Write the seeded checkpoint (`make`) to `path`; returns `path`."""
+    torch.save(make(up, seed, device, root), path)
     return path
 
 

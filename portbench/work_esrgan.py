@@ -2,13 +2,16 @@
 its frame size and its tile grid: what a roofline share divides by, the
 same whatever program computes the stage.
 
-- operations: 2 x 9 x in x out channels a 3x3 conv an output pixel, for
-  every conv of the RRDBNet (reference_esrgan.py's equations) at the
-  size it runs at (the body at the input's, `conv_up1` at 2x, the rest
-  at 4x), over every tile of the grid (reference_esrgan.grid: the tiles
-  run whole, overlap and edge padding included).  The leaky ReLUs,
+- operations: one forward of a tile, by the architecture's file
+  (`stages/<upscale.arch>.py` `tile_flops`), times the tiles of the grid
+  (reference_esrgan.grid: the tiles run whole, overlap and edge padding
+  included).  RRDBNet's (`flops_per_input_pixel`): 2 x 9 x in x out
+  channels a 3x3 conv an output pixel, for every conv
+  (reference_esrgan.py's equations) at the size it runs at (the body at
+  the input's, `conv_up1` at 2x, the rest at 4x); the leaky ReLUs,
   residual sums, concatenations and nearest upsamples are not counted.
-- bytes: the weights once, each tile's float32 input and output once.
+- bytes: the weights once (the architecture's `param_count`), each
+  tile's float32 input and output once.
 
 `RealESRGAN_x4plus` (64 / 23 / 32, x4) comes to 35,853,696 operations an
 input pixel; 800x450 on 128-pixel tiles with an 8-pixel overlap is 28
@@ -19,7 +22,7 @@ stage is bound by compute.  Imports nothing of the program.
 
 from __future__ import annotations
 
-from portbench import reference_esrgan, weights
+from portbench import reference_esrgan, registry, weights
 
 FP32_FLOPS = 67e12        # H100 SXM, float32 outside the tensor cores
 HBM_BYTES_S = 3.35e12
@@ -46,26 +49,27 @@ def frame_tiles(cfg: dict) -> tuple:
     return len(origins), th, tw
 
 
-def frame_flops(cfg: dict) -> float:
+def frame_flops(cfg: dict, root=registry.REPO) -> float:
     """Operations of the stage on one frame, over every tile."""
+    up = cfg["upscale"]
     n, th, tw = frame_tiles(cfg)
-    return flops_per_input_pixel(cfg["upscale"]) * n * th * tw
+    return registry.stage(up.get("arch"), root).tile_flops(up, th, tw) * n
 
 
-def frame_bytes(cfg: dict) -> float:
+def frame_bytes(cfg: dict, root=registry.REPO) -> float:
     """Bytes the stage must move for one frame: weights once, each tile's
     float32 input and output once."""
     up = cfg["upscale"]
     s = int(up["scale"])
-    params = sum(co * (ci * 9 + 1) for _, co, ci in weights.conv_shapes(up))
+    params = registry.stage(up.get("arch"), root).param_count(up)
     n, th, tw = frame_tiles(cfg)
     cin = int(up.get("num_in_ch", 3))
     cout = int(up.get("num_out_ch", 3))
     return 4.0 * (params + n * th * tw * (cin + cout * s * s))
 
 
-def frame_bound_s(cfg: dict) -> float:
+def frame_bound_s(cfg: dict, root=registry.REPO) -> float:
     """The least time the H100 could take for a frame's stage: the larger
     of operations over its float32 peak and bytes over its HBM rate."""
-    return max(frame_flops(cfg) / FP32_FLOPS,
-               frame_bytes(cfg) / HBM_BYTES_S)
+    return max(frame_flops(cfg, root) / FP32_FLOPS,
+               frame_bytes(cfg, root) / HBM_BYTES_S)
