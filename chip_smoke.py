@@ -1822,7 +1822,7 @@ def esrgan_phase(dev, frame: np.ndarray, card: str) -> dict:
                            allow_tf32=True)
 
     # the same call with its FP32 scope swapped for TF32
-    with mock.patch.object(esrgan, "fp32_convs", tf32_convs):
+    with mock.patch.object(esrgan, "fp32_scope", tf32_convs):
         out_tf32 = esrgan.upscale_u8(net, frame)
         ms_tf32, times_tf32 = least_event_ms(
             lambda: esrgan.upscale_u8(net, frame), 3)
@@ -1890,7 +1890,7 @@ def dense_block_phase(dev, frame: np.ndarray, card: str) -> dict:
         body = body.to(dev)
         feat = torch.randn(n, nf, h, w, device=dev)
         got, want = [], []
-        with torch.inference_mode(), esrgan.fp32_convs():
+        with torch.inference_mode(), esrgan.fp32_scope():
             esrgan.dense_trunk(body, feat, recorder(rdb_conv.rdb_conv, got))
             esrgan.dense_trunk(body, feat,
                                recorder(rdb_conv.rdb_conv_plain, want))
@@ -1952,7 +1952,7 @@ def dense_block_phase(dev, frame: np.ndarray, card: str) -> dict:
 
     x = buf[..., :nf].permute(0, 3, 1, 2).contiguous()
     per_conv = []
-    with torch.inference_mode(), esrgan.fp32_convs():
+    with torch.inference_mode(), esrgan.fp32_scope():
         for cin, m, dst, off, mode in convs:
             ms = event_ms(lambda: rdb_conv.rdb_conv(buf, cin, m, dst, off,
                                                     mode), 20)

@@ -50,23 +50,25 @@ the image in hand into `<output_dir>_upscaled/frame_{i:04d}.png`.  The
 backend (scripts/upsample.py `Upscaler`) is loaded once a run, at the
 first frame's stage (span `upscale_load`, frame -1, after
 `<output_dir>_upscaled` is made): with `--upscale_weights PATH` the
-RRDBNet on that checkpoint, and a file that is missing or does not load
-fails the run there, with nothing fetched and no fallback; without it
-the release weights' lookup (`fetch_weights`), else bicubic, as
-`scripts.upsample` does.  Frame i's stage issues its upscale (span
-`upscale`: `Upscaler.issue`, the network's `models/esrgan.py`
-`upscale_u8_async`, whose tile batches are spans `upscale_forward`; on
-the card nothing there waits for the device), and only then finishes
-frame i-1's (span `upscale_finish`: the wait for its copy back, and the
-stitch), so the card runs frame i's forward while the host stitches and
-writes frame i-1 and renders, encodes and tiles frame i+1.  A frame
-finished with nothing queued behind it, each frame with `--no_pipeline`
-and the last at the loop's end, is span `upscale_drain`.  The upscaled
-PNG is written on a thread of its own, one write in flight; its row
-`upscale_encode` is recorded when the loop waits for it (before the
-next write, and at the loop's end), and is no profiler annotation.  A
-failed stage fails the run.  `--resume` with `--upscale` skips a frame
-only when its upscaled PNG exists.
+network on that checkpoint (RRDBNet or SwinIR, picked from its keys by
+`models/esrgan.py` `load_torch_checkpoint`), and a file that is missing
+or does not load fails the run there, with nothing fetched and no
+fallback; without it the release weights' lookup (`fetch_weights`),
+else bicubic, as `scripts.upsample` does.  Frame i's stage issues its
+upscale (span `upscale`: `Upscaler.issue`, the network's
+`models/esrgan.py` `upscale_u8_async`, whose tile batches are spans
+`upscale_forward`, with SwinIR's spans `swin_rstb` and `swin_attn`
+inside; on the card nothing there waits for the device), and only then
+finishes frame i-1's (span `upscale_finish`: the wait for its copy back,
+and the stitch), so the card runs frame i's forward while the host
+stitches and writes frame i-1 and renders, encodes and tiles frame i+1.
+A frame finished with nothing queued behind it, each frame with
+`--no_pipeline` and the last at the loop's end, is span
+`upscale_drain`.  The upscaled PNG is written on a thread of its own,
+one write in flight; its row `upscale_encode` is recorded when the loop
+waits for it (before the next write, and at the loop's end), and is no
+profiler annotation.  A failed stage fails the run.  `--resume` with
+`--upscale` skips a frame only when its upscaled PNG exists.
 
 `--shard` makes the process one rank of a torch.distributed.run group
 (parallel/mesh.py: NCCL when every rank has a card of its own, gloo when
@@ -153,10 +155,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="upscale each frame x4 (super-resolution) into "
                         "<output_dir>_upscaled, inside the frame loop")
     p.add_argument("--upscale_weights", default="",
-                   help="the RRDBNet checkpoint --upscale runs (basicsr "
-                        "layout); a missing or unreadable file fails the "
-                        "run. Without it: the cached release weights, "
-                        "else a download, else bicubic")
+                   help="the checkpoint --upscale runs: RRDBNet (a "
+                        "Real-ESRGAN / basicsr file) or SwinIR (a SwinIR "
+                        "release file, x4), picked from its keys; a "
+                        "missing or unreadable file fails the run. Without "
+                        "it: the cached RealESRGAN release weights, else a "
+                        "download, else bicubic")
     p.add_argument("--width", type=int, default=800)
     p.add_argument("--height", type=int, default=450)
     p.add_argument("--spp", type=int, default=1000)

@@ -1,4 +1,5 @@
-"""RRDBNet (the Real-ESRGAN generator) in PyTorch.
+"""RRDBNet (the Real-ESRGAN generator) in PyTorch, and the upscale
+stage's loader and tile path for it and SwinIR.
 
 Port of dsrt_tpu/models/esrgan.py, the pipeline's super-resolution
 stage: the published Real-ESRGAN x4plus / x2plus network (RRDBNet,
@@ -21,8 +22,15 @@ through the hand-written FP32 kernel of `ops/rdb_conv.py` on channels-last
 buffers (`dense_trunk`: no concatenation, the leaky ReLUs and residuals
 in the kernel's epilogue); on the CPU they are the modules' own forwards.
 The other convs are `nn.Conv2d` (cuDNN on the card), in full FP32:
-`fp32_convs` scopes the forward to cuDNN with TF32 off, since PyTorch's
-default would run these convs in TF32.
+`fp32_scope` scopes the forward to cuDNN and cuBLAS with TF32 off, since
+PyTorch's default would run these convs in TF32.  The x4 tail (`x4_tail`)
+is the one that SwinIR's real-world network (`models/swinir.py`) runs
+too.
+
+`load_torch_checkpoint` loads either network from a file, by the state
+dict's keys, and the tile path below runs whichever it holds: a network
+states the device bytes a tile takes (`tile_bytes`), and `tile_batch`
+sizes its batches from that.
 
 `upscale_tiled` keeps JAX's tile grid and stitch (edge padding, step =
 tile - 2 * overlap, the interior of each tile), and sends the tiles
@@ -44,6 +52,7 @@ finishes this one.  On the CPU the async call runs to the end.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from collections import OrderedDict
 
@@ -172,6 +181,17 @@ class RRDB(nn.Module):
         return x + 0.2 * self.rdb3(self.rdb2(self.rdb1(x)))
 
 
+def x4_tail(net: nn.Module, feat: torch.Tensor) -> torch.Tensor:
+    """The `nearest+conv` x4 tail of RRDBNet and of SwinIR's real-world
+    network: twice (nearest x2, conv, leaky ReLU 0.2) through
+    `net.conv_up1` and `net.conv_up2`, then `net.conv_hr`, leaky ReLU
+    0.2, `net.conv_last`."""
+    for conv in (net.conv_up1, net.conv_up2):
+        feat = F.leaky_relu(conv(F.interpolate(feat, scale_factor=2,
+                                               mode="nearest")), 0.2)
+    return net.conv_last(F.leaky_relu(net.conv_hr(feat), 0.2))
+
+
 def dense_trunk(body: nn.Sequential, feat: torch.Tensor,
                 conv=rdb_conv.rdb_conv) -> torch.Tensor:
     """`body(feat)`, the RRDBs of the trunk, on three channels-last
@@ -229,12 +249,18 @@ class RRDBNet(nn.Module):
         feat = self.conv_first(x)
         trunk = (dense_trunk(self.body, feat) if feat.is_cuda
                  else self.body(feat))
-        feat = feat + self.conv_body(trunk)
-        feat = F.leaky_relu(self.conv_up1(
-            F.interpolate(feat, scale_factor=2, mode="nearest")), 0.2)
-        feat = F.leaky_relu(self.conv_up2(
-            F.interpolate(feat, scale_factor=2, mode="nearest")), 0.2)
-        return self.conv_last(F.leaky_relu(self.conv_hr(feat), 0.2))
+        # the sum goes into conv_body's output and conv_first's is let go,
+        # so that the tail's input is the one such map alive in the tail
+        trunk = self.conv_body(trunk)
+        trunk += feat
+        del feat
+        return x4_tail(self, trunk)
+
+    def tile_bytes(self, th: int, tw: int) -> int:
+        """Device bytes one th x tw tile takes at once in a forward: about
+        four float32 activations of num_feat channels at the output
+        size."""
+        return 16 * self.conv_hr.out_channels * self.scale ** 2 * th * tw
 
 
 def _net_from_state_dict(sd, num_block: int, scale: int,
@@ -258,40 +284,68 @@ def rrdbnet_from_params(params: dict, scale: int = 4,
                                 len(params["body"]), scale, device)
 
 
+# a key that each architecture's state dict has and the other's lacks
+ARCH_KEYS = {"RRDBNet": "body.0.rdb1.conv1.weight",
+             "SwinIR": "layers.0.residual_group.blocks.0.attn.qkv.weight"}
+
+
 def load_torch_checkpoint(path: str, num_block: int = 23, scale: int = 4,
-                          device=None) -> RRDBNet:
-    """A Real-ESRGAN .pth checkpoint (basicsr RRDBNet state dict, usually
-    nested under 'params_ema' / 'params') as the network on `device`.
-    A file that is not such a checkpoint raises."""
+                          device=None) -> nn.Module:
+    """A super-resolution .pth checkpoint, its state dict usually nested
+    under 'params_ema' / 'params', as its network on `device`, the
+    architecture picked by the state dict's keys (`ARCH_KEYS`): a
+    Real-ESRGAN file (basicsr's RRDBNet, `num_block` RRDBs, `scale` 4, 2
+    or 1) or a SwinIR release file (`models/swinir.py`, x4; its widths
+    and depths read from the file).  A file of neither raises a
+    ValueError naming the keys looked for; one that does not load
+    raises."""
     raw = torch.load(path, map_location="cpu", weights_only=True)
     for k in ("params_ema", "params", "state_dict"):
         if k in raw:
             raw = raw[k]
             break
-    return _net_from_state_dict(raw, num_block, scale, device)
+    if ARCH_KEYS["RRDBNet"] in raw:
+        return _net_from_state_dict(raw, num_block, scale, device)
+    if ARCH_KEYS["SwinIR"] in raw:
+        from dsrt_tpu_torch.models import swinir
+        return swinir.from_state_dict(raw, scale, device)
+    raise ValueError(f"{path}: not an upscaler checkpoint: none of the keys "
+                     f"{sorted(ARCH_KEYS.values())} (RRDBNet, SwinIR)")
 
 
 # ---------------------------------------------------------------------------
 # tiled inference
 # ---------------------------------------------------------------------------
 
-def fp32_convs():
-    """The scope the upscaler's convs run in: cuDNN with TF32 off.
-    `cudnn.flags` sets every flag it takes for the scope, so the
-    process's own benchmark and deterministic settings are passed
-    through (PyTorch's default: both off)."""
-    cudnn = torch.backends.cudnn
-    return cudnn.flags(enabled=True, benchmark=cudnn.benchmark,
-                       deterministic=cudnn.deterministic, allow_tf32=False)
+@contextlib.contextmanager
+def fp32_scope():
+    """The scope an upscaler's forward runs in: cuDNN's convs and
+    cuBLAS's matmuls in full FP32, TF32 off.  `cudnn.flags` sets every
+    flag it takes for the scope, so the process's own benchmark and
+    deterministic settings are passed through (PyTorch's default: both
+    off); the caller's matmul setting comes back after the scope."""
+    cudnn, mm = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = mm.allow_tf32
+    mm.allow_tf32 = False
+    try:
+        with cudnn.flags(enabled=True, benchmark=cudnn.benchmark,
+                         deterministic=cudnn.deterministic, allow_tf32=False):
+            yield
+    finally:
+        mm.allow_tf32 = saved
 
 
-def tile_batch(net: RRDBNet, tile: int, n_tiles: int) -> int:
-    """Tiles a forward may take at once: about four float32 activations
-    of num_feat channels at the output size each, within
+def tile_batch(net: nn.Module, tile: int, n_tiles: int) -> int:
+    """Tiles a forward may take at once: the network's bytes for a tile x
+    tile tile (`net.tile_bytes`; for a network that states none, four
+    float32 activations of `conv_hr`'s width at the output size) within
     TILE_MEMORY_SHARE of the device's free memory (CPU_TILE_BUDGET on
     the CPU)."""
     dev = next(net.parameters()).device
-    per_tile = 16 * net.conv_hr.out_channels * (tile * net.scale) ** 2
+    if hasattr(net, "tile_bytes"):
+        per_tile = net.tile_bytes(tile, tile)
+    else:
+        per_tile = 16 * net.conv_hr.out_channels * (tile * net.scale) ** 2
     if dev.type == "cuda":
         budget = TILE_MEMORY_SHARE * torch.cuda.mem_get_info(dev)[0]
     else:
@@ -311,7 +365,7 @@ class PendingUpscale:
     done: "torch.cuda.Event | None" = None
 
 
-def issue_tiles(net: RRDBNet, tiles: np.ndarray, u8: bool = False,
+def issue_tiles(net: nn.Module, tiles: np.ndarray, u8: bool = False,
                 grid: tuple | None = None) -> PendingUpscale:
     """Queue (N, h, w, 3) float32 tiles through the network and return
     without waiting for the device: `tile_batch` tiles a forward, each
@@ -325,7 +379,7 @@ def issue_tiles(net: RRDBNet, tiles: np.ndarray, u8: bool = False,
     s = net.scale
     cuda = dev.type == "cuda"
     nchw = np.ascontiguousarray(tiles.transpose(0, 3, 1, 2))
-    with torch.inference_mode(), fp32_convs():
+    with torch.inference_mode(), fp32_scope():
         ups = torch.empty((n, th * s, tw * s, 3),
                           dtype=torch.uint8 if u8 else torch.float32,
                           pin_memory=cuda)
@@ -352,7 +406,7 @@ def finish_upscale(p: PendingUpscale) -> np.ndarray:
     return ups if p.grid is None else stitch(ups, *p.grid)
 
 
-def forward_tiles(net: RRDBNet, tiles: np.ndarray,
+def forward_tiles(net: nn.Module, tiles: np.ndarray,
                   u8: bool = False) -> np.ndarray:
     """(N, h, w, 3) float32 tiles -> (N, s*h, s*w, 3) float32 on the
     host (with `u8`: uint8, round(y * 255) clipped to 0..255 on the
@@ -392,7 +446,7 @@ def stitch(ups: np.ndarray, origins, height: int, width: int,
     return out[:height * s, :width * s]
 
 
-def upscale_tiled_async(net: RRDBNet, img: np.ndarray, tile: int = 128,
+def upscale_tiled_async(net: nn.Module, img: np.ndarray, tile: int = 128,
                         overlap: int = 8, u8: bool = False) -> PendingUpscale:
     """Issue the `net.scale` x upscale of an (H, W, 3) float [0,1] image
     in overlapping tiles (`tile_grid`, `issue_tiles`) without waiting for
@@ -406,7 +460,7 @@ def upscale_tiled_async(net: RRDBNet, img: np.ndarray, tile: int = 128,
     return issue_tiles(net, tiles, u8, (origins, h, w, tile, overlap))
 
 
-def upscale_tiled(net: RRDBNet, img: np.ndarray, tile: int = 128,
+def upscale_tiled(net: nn.Module, img: np.ndarray, tile: int = 128,
                   overlap: int = 8, u8: bool = False) -> np.ndarray:
     """Upscale an (H, W, 3) float [0,1] image `net.scale` x in
     overlapping tiles (`upscale_tiled_async`, then `finish_upscale`); an
@@ -414,14 +468,14 @@ def upscale_tiled(net: RRDBNet, img: np.ndarray, tile: int = 128,
     return finish_upscale(upscale_tiled_async(net, img, tile, overlap, u8))
 
 
-def upscale_u8_async(net: RRDBNet, img_u8: np.ndarray, tile: int = 128,
+def upscale_u8_async(net: nn.Module, img_u8: np.ndarray, tile: int = 128,
                      overlap: int = 8) -> PendingUpscale:
     """Issue `upscale_u8` of `img_u8` without waiting for the device."""
     return upscale_tiled_async(net, img_u8.astype(np.float32) / 255.0, tile,
                                overlap, u8=True)
 
 
-def upscale_u8(net: RRDBNet, img_u8: np.ndarray, tile: int = 128,
+def upscale_u8(net: nn.Module, img_u8: np.ndarray, tile: int = 128,
                overlap: int = 8) -> np.ndarray:
     """uint8 (H, W, 3) -> uint8 (sH, sW, 3) through the network."""
     return finish_upscale(upscale_u8_async(net, img_u8, tile, overlap))

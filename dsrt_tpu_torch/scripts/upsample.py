@@ -6,7 +6,12 @@ RRDBNet-23 with auto-downloaded weights).  Backends:
 
 1. rrdbnet: the network of dsrt_tpu_torch/models/esrgan.py on the release
    weights (cached under ~/.cache/realesrgan/, or downloaded there with a
-   SHA256 check), in FP32 on the device;
+   SHA256 check), in FP32 on the device; given a checkpoint path, the
+   network that file holds: RRDBNet (a Real-ESRGAN / basicsr file) or
+   SwinIR (a SwinIR release file such as the real-world x4
+   `003_realSR_BSRGAN_DFOWMFC_s64w8_SwinIR-L_x4_GAN.pth`;
+   dsrt_tpu_torch/models/swinir.py), picked by
+   `esrgan.load_torch_checkpoint` from the file's keys;
 2. torch: bicubic interpolation on the device;
 3. pil: PIL bicubic on the host.
 
@@ -19,10 +24,12 @@ weights.
 
 `Upscaler` picks and loads the backend, for `process_folder` and for the
 driver's `--upscale` alike.  Given a weights path (the driver's
-`--upscale_weights`) it takes rrdbnet on that file: no lookup, no
-download, no fallback.  `Upscaler.issue` starts an image and returns
-before the device is done (rrdbnet's `models/esrgan.py`
-`upscale_u8_async`; the other backends complete it), and
+`--upscale_weights`) it takes the network on that file, RRDBNet or
+SwinIR (its `backend` then names the network: "rrdbnet" or "swinir"):
+no lookup, no download, no fallback.  `Upscaler.issue` starts an image
+and returns before the device is done (a network's `models/esrgan.py`
+`upscale_u8_async`, the one tile path of both; the other backends
+complete it), and
 `esrgan.finish_upscale` of the result is the upscaled image: the
 driver's stage queues the next frame's forward before it finishes this
 one's.
@@ -112,13 +119,14 @@ class Upscaler:
     """One backend, chosen and loaded once; `up(img)` upscales a u8
     (H, W, 3) image `scale` x.
 
-    `weights`: a checkpoint path.  With one, the backend is the RRDBNet
-    on that file, whatever `backend` says: nothing is fetched, and a
-    file that is missing or does not load raises.  Without one, `auto`
-    and `rrdbnet` look the release weights up with `fetch_weights`, and
-    `auto` falls back to `torch` (saying so on stderr) when that finds
-    none.  `device`: the card unless the caller asks for another (`pil`
-    runs on the host)."""
+    `weights`: a checkpoint path.  With one, the backend is the network
+    on that file (RRDBNet or SwinIR, `esrgan.load_torch_checkpoint`),
+    whatever `backend` says, and `self.backend` names it: nothing is
+    fetched, and a file that is missing or does not load raises.
+    Without one, `auto` and `rrdbnet` look the release weights up with
+    `fetch_weights`, and `auto` falls back to `torch` (saying so on
+    stderr) when that finds none.  `device`: the card unless the caller
+    asks for another (`pil` runs on the host)."""
 
     def __init__(self, scale: int = 4, backend: str = "auto", device=None,
                  weights: str | None = None):
@@ -141,7 +149,7 @@ class Upscaler:
             from dsrt_tpu_torch.models.esrgan import load_torch_checkpoint
             self.net = load_torch_checkpoint(weights, scale=scale,
                                              device=self.device)
-            backend = "rrdbnet"
+            backend = type(self.net).__name__.lower()
         self.backend = backend
 
     def issue(self, img: np.ndarray):
@@ -149,13 +157,13 @@ class Upscaler:
         and not yet waited for through the network, complete through
         the other backends."""
         from dsrt_tpu_torch.models import esrgan
-        if self.backend == "rrdbnet":
+        if self.net is not None:
             return esrgan.upscale_u8_async(self.net, img)
         import torch
         return esrgan.PendingUpscale(torch.from_numpy(self(img)))
 
     def __call__(self, img: np.ndarray) -> np.ndarray:
-        if self.backend == "rrdbnet":
+        if self.net is not None:
             # through the module, so that a wrapper of upscale_u8 is used
             from dsrt_tpu_torch.models import esrgan
             return esrgan.upscale_u8(self.net, img)

@@ -195,7 +195,7 @@ def test_kernel_matches_plain_on_the_card(cuda, nf, gc):
     body = seeded_body(nf, gc).to(cuda)
     feat = torch.randn(3, nf, 90, 100, device=cuda)
     got, want = [], []
-    with torch.inference_mode(), esrgan.fp32_convs():
+    with torch.inference_mode(), esrgan.fp32_scope():
         esrgan.dense_trunk(body, feat, recorder(rdb_conv.rdb_conv, got))
         esrgan.dense_trunk(body, feat,
                            recorder(rdb_conv.rdb_conv_plain, want))

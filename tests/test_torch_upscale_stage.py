@@ -1,6 +1,7 @@
 """The driver's x4 upscale stage inside the frame loop (`--upscale
 --upscale_weights`), on the CPU, against the benchmark's plain reference
-(portbench/reference_esrgan.py) on seeded weights.
+(portbench/reference_esrgan.py) on seeded weights: RRDBNet, and SwinIR
+through the same loop.
 
 The network has RealESRGAN_x4plus's depth (23 RRDBs, as the checkpoint
 loader builds them) at narrow widths (8 features, 4 growth channels),
@@ -13,6 +14,12 @@ program's own raw PNG: u8 equal on >= 99.9% of values and max |d| <= 1,
 and in float max |d| <= 1e-5 x max |out|: both are FP32 with the same
 equations, but two conv call paths (a batch of tiles, one tile a call)
 may sum in other orders.  The reference in bfloat16 fails them.
+
+SwinIR (portbench/stages/SwinIR.py, `rdv_a_swinir`'s recipe) at 48 wide,
+2 RSTBs of 2 layers, on 44x26 frames: one tile, which the network
+reflect-pads to 48x32 and crops; its PNGs against the reference's u8 on
+the program's raw PNG with the same u8 tolerance, which the reference in
+bfloat16 fails.
 """
 
 import os
@@ -43,6 +50,10 @@ ARGS = ["--device", "cpu", "--width", str(W), "--height", str(H), "--spp",
         "2", "--max_depth", "3", "--standin_detail", "1"]
 STAGE_SPANS = ("upscale_load", "upscale", "upscale_forward",
                "upscale_encode", "upscale_finish", "upscale_drain")
+SWIN_SPANS = ("swin_rstb", "swin_attn")
+SWIN = dict(Bench().config("rdv_a_swinir")["upscale"], embed_dim=48,
+            depths=[2, 2], num_heads=[8, 8])
+SW, SH = 44, 26
 
 
 def _pose_file(tmp, first=97, n=2):
@@ -113,6 +124,26 @@ def staged(tmp_path_factory, ckpt):
 
 def _refuse(*a, **k):
     raise AssertionError("the stage tried to download")
+
+
+@pytest.fixture(scope="module")
+def swin_ckpt(tmp_path_factory):
+    return weights.write(SWIN, SEED, "cpu", str(
+        tmp_path_factory.mktemp("sw") / "swinir.pth"))
+
+
+@pytest.fixture(scope="module")
+def swin_staged(tmp_path_factory, swin_ckpt):
+    """One driver run of 2 SwinIR frames of SW x SH, downloading
+    refused."""
+    mp = pytest.MonkeyPatch()
+    tmp = tmp_path_factory.mktemp("swin_staged")
+    try:
+        mp.setattr(urllib.request, "urlretrieve", _refuse)
+        yield _drive(mp, tmp, ["--width", str(SW), "--height", str(SH),
+                               "--upscale", "--upscale_weights", swin_ckpt])
+    finally:
+        mp.undo()
 
 
 def _reference(raw: np.ndarray, sd: dict, dtype=torch.float32):
@@ -353,3 +384,51 @@ def test_resume_skips_frames_whose_upscaled_png_exists(tmp_path, monkeypatch,
     _, _, again = _drive(monkeypatch, tmp_path, flags)
     assert again == [os.path.join(out, "frame_0001.png"),
                      os.path.join(out + "_upscaled", "frame_0001.png")]
+
+
+def _u8_within(got, want) -> bool:
+    d = np.abs(got.astype(int) - want.astype(int))
+    return bool((d == 0).mean() >= 0.999 and d.max() <= 1)
+
+
+def test_swinir_frames_match_the_reference(swin_staged, swin_ckpt):
+    """The driver's SwinIR PNGs against the reference's u8 on the
+    program's raw PNG of each frame (one tile, run whole)."""
+    _, out, _ = swin_staged
+    sd = weights.load(swin_ckpt, "cpu")
+    assert _frames(out) == _frames(out + "_upscaled") == [
+        "frame_0000.png", "frame_0001.png"]
+    for f in _frames(out):
+        raw = image_io.read_png(os.path.join(out, f))
+        assert raw.any()                               # the station is in
+        got = image_io.read_png(os.path.join(out + "_upscaled", f))
+        batch = rup.to_float(raw)[None]
+        want = rup.upscale_tiles(sd, batch, SWIN, "cpu")[0]
+        assert got.shape == want.shape == (4 * SH, 4 * SW, 3)
+        assert ((want >= 1) & (want <= 254)).mean() > 0.9
+        assert _u8_within(got, want)
+        low = rup.upscale_tiles(sd, batch, SWIN, "cpu",
+                                dtype=torch.bfloat16)[0]
+        assert not _u8_within(low, want)
+
+
+def test_swinir_spans_have_their_frames_and_parents(swin_staged):
+    """Each frame's forward holds its 2 RSTBs (`swin_rstb`, inside
+    `upscale_forward`) and each of their 2 layers' attention cores
+    (`swin_attn`, inside its RSTB), with the frame's id."""
+    timer, _, _ = swin_staged
+    rec = timer.records
+    rows = sorted((name, frame, rec[parent][0])
+                  for name, _, _, frame, parent in rec if name in SWIN_SPANS)
+    assert rows == sorted(
+        [("swin_rstb", i, "upscale_forward") for i in (0, 1)] * 2
+        + [("swin_attn", i, "swin_rstb") for i in (0, 1)] * 4)
+    for name, t0, t1, _, parent in rec:
+        if name in SWIN_SPANS:
+            assert rec[parent][1] <= t0 <= t1 <= rec[parent][2]
+
+
+def test_rrdbnet_run_has_no_swin_spans(staged):
+    timer, _, _ = staged
+    assert not any(r[0] in SWIN_SPANS for r in timer.records)
+    assert any(r[0] == "upscale_forward" for r in timer.records)
